@@ -3,30 +3,47 @@
 
     python3 chip_smoke.py        # on a machine with one CUDA GPU
 
-Phases, one line each (any failure exits non-zero at once):
+Phases (any failure exits non-zero at once):
 
-1. build   — compile the CUDA probe kernels from
-             ``tpu_pattern_matching_torch/csrc/`` with nvcc for sm_90a;
-2. kernels — each kernel against its plain PyTorch version on the card,
-             bit for bit (bitmap and total), on ragged random batches at
-             the bench shape [4224, 4096]; CUDA-event times of both;
-3. slice   — ``MatchSession(device="cuda")``: the bench workload (10,000
-             random 12-byte signatures, seed 42) over 64 MiB of seeded
-             random bytes with planted matches at 1e-3 density, and a
-             small pattern set whose filter is strided; events must equal
-             the native oracle's, and every probe kernel must have been
-             launched by these runs;
-4. no jax  — the port never imported jax.
+1. build    — compile both CUDA libraries of
+              ``tpu_pattern_matching_torch/csrc/`` with nvcc for sm_90a, one
+              nvcc each, both at once;
+2. kernels  — each kernel against its plain PyTorch version on the card,
+              bit for bit, with CUDA-event times of both: the sampled and
+              strided probes on ragged random batches at the bench shape
+              [4096 lanes, 4112], the packed strided probe (K3) on the same
+              batch, the window walk (device verify) on seeded candidate
+              sets and the dense lane walk on seeded lanes, at an int32
+              (10k patterns) and an int16 (3 patterns) table;
+3. slice    — ``MatchSession(device="cuda")``, the default path: the bench
+              workload (10,000 random 12-byte signatures, seed 42) over 64
+              MiB of seeded random bytes with planted matches at 1e-3
+              density, and a 3-pattern set whose filter is strided; events
+              must equal the native oracle's;
+4. packed   — ``hits(packed=True)`` against ``hits(packed=False)`` at the
+              bench shape with an s4 filter: equal bitmaps, and the time of
+              prep + probe of each (A, B, B, A);
+5. verify   — ``MatchSession(verify="device")`` on the same two
+              workloads: events equal the oracle's, ``decode_counts``
+              equals the oracle's per-group count of distinct match ends,
+              no batch fell back to the host;
+6. dense    — ``MatchSession(engine="dense")`` on the same two workloads:
+              events equal the oracle's, no result slot overflowed;
+7. no jax   — the port never imported jax.
 
-The last lines are the card's name and power limit, a JSON line per-kernel
-summary, and ``{"ok": true, "device": {...}}``. Exits non-zero, printing
-no result, when there is no CUDA device.
+Each of phases 3-6 sets every launch count to 0 before its path and reads
+them after it; each fails unless the kernels of its path were launched.
+The last lines are the card's name and power limit, a JSON line with the
+per-kernel summary, and ``{"ok": true, "device": {...}}``. Exits non-zero,
+printing no result, when there is no CUDA device.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -36,13 +53,23 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH_LANES = 4096  # bench.py's batch: 4096 lanes x 4096 bytes
 CHUNK_LEN = 4096
+HALO = 16  # pad_halo(11, 4096): the bench batch is [4096, 4112]
 STREAM_BYTES = 64 << 20
 DENSITY = 1e-3
 DEVICE = "cuda"
-SOURCE = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
-REPLACES = {  # the Pallas kernel bodies (both launched at bloom.py:1045)
-    "sampled": "tpu_pattern_matching/ops/bloom.py:833",
-    "strided": "tpu_pattern_matching/ops/bloom.py:687",
+PROBE_SRC = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
+WALK_SRC = "tpu_pattern_matching_torch/csrc/dfa_walk.cu"
+KERNELS = {  # launch-count key: (summary name, source, TPU kernel replaced)
+    "sampled": ("bloom_probe_sampled", PROBE_SRC,
+                "tpu_pattern_matching/ops/bloom.py:833"),
+    "strided": ("bloom_probe_strided", PROBE_SRC,
+                "tpu_pattern_matching/ops/bloom.py:687"),
+    "strided_packed": ("bloom_probe_strided_packed", PROBE_SRC,
+                       "tpu_pattern_matching/ops/bloom.py:730"),
+    "window_walk": ("dfa_window_walk", WALK_SRC,
+                    "tpu_pattern_matching/ops/verify_device.py:260"),
+    "dense_walk": ("dfa_dense_walk", WALK_SRC,
+                   "tpu_pattern_matching/ops/match_xla.py:69"),
 }
 
 
@@ -74,19 +101,69 @@ def cuda_ms(torch, fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
+def max_abs_err(torch, got, want) -> int:
+    """Largest elementwise difference over paired integer outputs."""
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"shape/dtype {tuple(g.shape)} {g.dtype} vs "
+                 f"{tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def reset(kernels) -> None:
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+
+
+def read_launches(kernels, label: str, needed) -> dict:
+    got = dict(kernels.launches)
+    missing = [k for k in needed if not got[k]]
+    if missing:
+        fail(f"[{label}] kernels of this path were never launched: "
+             f"{missing} ({got})")
+    print(f"[{label}] kernel launches on this path: {got}", flush=True)
+    return got
+
+
 def phase_build(kernels, card_line: str) -> None:
     t0 = time.perf_counter()
-    kernels.cuda_library()
+    kernels.build_all()
     secs = time.perf_counter() - t0
-    b = kernels.last_build
-    if not b:
-        fail("the CUDA library was not built by this run")
-    cmd = " ".join(os.path.relpath(c, HERE) if c.startswith(HERE)
-                   else os.path.basename(c) for c in b["command"])
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in b["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] {cmd}: {b['seconds']:.2f} s (first use {secs:.2f} s) "
-          f"on {card_line}; ptxas: {' | '.join(ptxas)}", flush=True)
+    for name in ("libtpm_probe_cuda.so", "libtpm_walk_cuda.so"):
+        b = kernels.builds.get(name)
+        if not b:
+            fail(f"{name} was not built by this run")
+        cmd = " ".join(os.path.relpath(c, HERE) if c.startswith(HERE)
+                       else os.path.basename(c) for c in b["command"])
+        print(f"[build] {cmd}: {b['seconds']:.2f} s on {card_line}; ptxas: "
+              f"{'; '.join(ptxas_summary(b['log']))}", flush=True)
+    print(f"[build] both libraries in {secs:.2f} s (parallel)", flush=True)
+
+
+def ptxas_summary(log: str) -> list:
+    """'kernel<T>: N registers, S B stack, spills' per compiled kernel."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:I(Li(\d+)|[is])E)?",
+                          m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(2):
+                arg = k.group(3) or {"i": "int32", "s": "int16"}[k.group(2)]
+                name += f"<{arg}>"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+        if m:
+            stack, spill = m.groups()
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, {stack} B stack, "
+                       f"{spill} B spilled")
+    return out
 
 
 def random_cfg(bloom, mode, q, sw, k, v, fold, seed):
@@ -101,59 +178,73 @@ def random_cfg(bloom, mode, q, sw, k, v, fold, seed):
     )
 
 
-def phase_kernels(torch, bloom, kernels, card_line: str) -> dict:
-    """Kernel vs plain on the card, bit for bit; returns per-mode times
-    of the bench configs at the bench shape."""
-    dev = torch.device(DEVICE)
-    rng = np.random.RandomState(1234)
-    halo = 16  # pad_halo(11, 4096): the bench batch is [4096, 4112]
-    C, T = BATCH_LANES, halo + CHUNK_LEN
+def ragged_batch(torch, seed):
+    """The bench-shaped batch [4096, 4112] with ragged spans, on the card."""
+    rng = np.random.RandomState(seed)
+    C, T = BATCH_LANES, HALO + CHUNK_LEN
     data_np = rng.randint(0, 256, size=(C, T)).astype(np.uint8)
-    start = rng.randint(0, halo + 1, size=C).astype(np.int32)
+    start = rng.randint(0, HALO + 1, size=C).astype(np.int32)
     end = rng.randint(T - 300, T + 1, size=C).astype(np.int32)
     empty = rng.rand(C) < 0.05
     end[empty] = start[empty]  # empty lanes
     end[:64] = rng.randint(0, 200, size=64)  # short lanes
     end[:64] = np.maximum(end[:64], start[:64])
-    data = torch.from_numpy(data_np).to(dev)
-    bounds = torch.from_numpy(np.stack([start, end])).to(dev)
-    configs = [  # (label, mode, q, stride|w, k, v, fold)
-        ("bench pick", "sampled", 4, 9, 6, 8, False),
-        ("k>8", "sampled", 4, 9, 12, 8, False),
-        ("v=256 (global words)", "sampled", 4, 9, 6, 256, False),
-        ("w=20 (wide context)", "sampled", 4, 20, 6, 8, False),
-        ("nocase", "sampled", 4, 9, 6, 8, True),
-        ("strided", "strided", 4, 4, 6, 16, False),
-        ("strided nocase k>8", "strided", 3, 5, 10, 4, True),
+    dev = torch.device(DEVICE)
+    return (torch.from_numpy(data_np).to(dev),
+            torch.from_numpy(np.stack([start, end])).to(dev))
+
+
+def phase_probes(torch, bloom, kernels, card_line: str) -> dict:
+    """K1, K2 and K3 against the plain probe on the card, bit for bit;
+    returns the times of the bench configs of each mode."""
+    dev = torch.device(DEVICE)
+    data, bounds = ragged_batch(torch, 1234)
+    rng = np.random.RandomState(99)
+    configs = [  # (label, mode, q, stride|w, k, v, fold, packed)
+        ("bench pick", "sampled", 4, 9, 6, 8, False, False),
+        ("k>8", "sampled", 4, 9, 12, 8, False, False),
+        ("v=256 (global words)", "sampled", 4, 9, 6, 256, False, False),
+        ("w=20 (wide context)", "sampled", 4, 20, 6, 8, False, False),
+        ("nocase", "sampled", 4, 9, 6, 8, True, False),
+        ("strided", "strided", 4, 4, 6, 16, False, False),
+        ("strided nocase k>8", "strided", 3, 5, 10, 4, True, False),
+        ("packed s4", "strided", 4, 4, 6, 16, False, True),
+        ("packed s8 nocase k>8", "strided", 4, 8, 10, 4, True, True),
+        ("packed s12 q6 v=256", "strided", 6, 12, 6, 256, False, True),
     ]
+    timed = {"bench pick": "sampled", "strided": "strided",
+             "packed s4": "strided_packed"}
     times = {}
-    for i, (label, mode, q, sw, k, v, fold) in enumerate(configs):
+    for i, (label, mode, q, sw, k, v, fold, packed) in enumerate(configs):
         cfg = random_cfg(bloom, mode, q, sw, k, v, fold, seed=i)
         # random words: ~half the bits set, so a large share of tested
         # rows survives and every bank decision is compared
         words = torch.from_numpy(
             rng.randint(-(2**31), 2**31, size=(k, v, 128)).astype(np.int32)
         ).to(dev)
-        data_tm, Cp = bloom.prep_time_major(data, cfg)
+        data_tm, Cp = bloom.prep_time_major(data, cfg, packed=packed)
         bp = bloom.pad_bounds(bounds, Cp)
         kb, kt = kernels.launch_probe(data_tm, bp, words, cfg)
         torch.cuda.synchronize()
         pb, pt = bloom.probe_bits_plain(data_tm, bp, words, cfg)
         torch.cuda.synchronize()
-        err = int((kb.to(torch.int64) - pb.to(torch.int64)).abs().max())
-        if not torch.equal(kb, pb) or int(kt[0]) != int(pt[0]):
-            fail(f"[kernels] {mode} {label}: kernel differs from plain "
+        err = max_abs_err(torch, (kb, kt), (pb, pt))
+        kind = kernels.probe_mode(data_tm, cfg)
+        if err or int(kt[0]) != int(pt[0]):
+            fail(f"[kernels] {kind} {label}: kernel differs from plain "
                  f"(max_abs_err {err}, totals {int(kt[0])} vs {int(pt[0])})")
-        line = (f"[kernels] {mode:7s} {label:22s} q{q} {'w' if mode == 'sampled' else 's'}{sw} "
-                f"k{k} v{v}{' fold' if fold else ''} [{data_tm.shape[0]}, "
-                f"{Cp}]: bits and total equal, tolerance 0 "
-                f"({int(kt[0])} survivors)")
-        if i in (0, 5):  # the bench configs of each mode: time both
+        line = (f"[kernels] {kind:14s} {label:22s} q{q} "
+                f"{'w' if mode == 'sampled' else 's'}{sw} k{k} v{v}"
+                f"{' fold' if fold else ''} {data_tm.dtype} "
+                f"[{data_tm.shape[0]}, {Cp}]: bits and total equal, "
+                f"tolerance 0 ({int(kt[0])} survivors)")
+        if label in timed:
             ms = cuda_ms(torch, lambda: kernels.launch_probe(
                 data_tm, bp, words, cfg), 20)
             plain_ms = cuda_ms(torch, lambda: bloom.probe_bits_plain(
                 data_tm, bp, words, cfg), 3)
-            times[mode] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+            times[timed[label]] = dict(ms=ms, plain_ms=plain_ms,
+                                       max_abs_err=err)
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                      f"({card_line})")
         print(line, flush=True)
@@ -171,6 +262,104 @@ def plant(rng, pats, size, density):
     return data.tobytes(), n
 
 
+def planted_batch(torch, pats, seed):
+    """A bench-shaped batch [4096, 4112] of planted matches at 1e-2, with
+    ragged spans: the inputs of the walk kernels."""
+    rng = np.random.RandomState(seed)
+    C, T = BATCH_LANES, HALO + CHUNK_LEN
+    raw, _ = plant(rng, pats, C * T, 1e-2)
+    data = np.frombuffer(raw, np.uint8).reshape(C, T)
+    start = np.where(rng.rand(C) < 0.2, HALO, 0).astype(np.int32)
+    end = rng.randint(T - 300, T + 1, size=C).astype(np.int32)
+    end[rng.rand(C) < 0.03] = HALO  # empty lanes
+    dev = torch.device(DEVICE)
+    return (torch.from_numpy(data.copy()).to(dev),
+            torch.from_numpy(np.stack([start, end])).to(dev))
+
+
+def phase_walks(torch, kernels, workloads, card_line: str) -> dict:
+    """W2 (window walk) and W1 (dense walk) against their plain versions
+    on the card, bit for bit, at the int32 and the int16 table."""
+    from tpu_pattern_matching_torch.ops import match_xla, verify_device
+    from tpu_pattern_matching_torch.ops.table import DeviceTable
+
+    dev = torch.device(DEVICE)
+    times = {}
+    for w in workloads:
+        table, pats = w["table"], w["pats"]
+        dt = DeviceTable.put(table, dev)
+        data, bounds = planted_batch(torch, pats, seed=len(pats))
+        C, T = data.shape
+        q = 4
+        lmax = table.max_pat_len
+        # candidates: ~15k distinct random (lane, row) pairs in (lane, row)
+        # order, several per lane, in 16384 slots whose tail is sentinels
+        # (lane C, row INT32_MAX), as the compaction leaves them
+        rng = np.random.RandomState(7)
+        kw_slots = 16384
+        keys = np.unique(rng.randint(0, C, size=kw_slots - 1000) * T
+                         + rng.randint(0, T - q, size=kw_slots - 1000))
+        n = len(keys)
+        lane = np.full(kw_slots, C, np.int32)
+        row = np.full(kw_slots, 0x7FFFFFFF, np.int32)
+        lane[:n] = keys // T
+        row[:n] = keys % T
+        args = (dt.table_flat, data.reshape(-1), bounds,
+                torch.from_numpy(lane).to(dev), torch.from_numpy(row).to(dev),
+                torch.tensor([n], dtype=torch.int64, device=dev))
+        kw = dict(C=C, T=T, alphabet_size=256, q=q, lmax=lmax, halo=HALO)
+        steps = verify_device.walk_steps(lmax, q)
+        got = kernels.launch_window_walk(*args, **kw, steps=steps)
+        torch.cuda.synchronize()
+        want = verify_device.window_walk_plain(*args, **kw, steps=steps)
+        err = max_abs_err(torch, got, want)
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"[kernels] window walk, {w['label']}: kernel differs from "
+                 f"plain (max_abs_err {err})")
+        line = (f"[kernels] window_walk    {w['label']:22s} "
+                f"{dt.table_flat.dtype} table, {kw_slots} slots ({n} live) x "
+                f"{steps} steps over [{C}, {T}]: rep and state equal, "
+                f"tolerance 0 ({int(want[0].sum())} reports)")
+        if w["label"] == "bench workload":
+            ms = cuda_ms(torch, lambda: kernels.launch_window_walk(
+                *args, **kw, steps=steps), 20)
+            plain_ms = cuda_ms(torch, lambda: verify_device.window_walk_plain(
+                *args, **kw, steps=steps), 3)
+            times["window_walk"] = dict(ms=ms, plain_ms=plain_ms,
+                                        max_abs_err=err)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                     f"({card_line})")
+        print(line, flush=True)
+
+        data_tm = data.t().contiguous()
+        dkw = dict(alphabet_size=256, halo=HALO, max_results=16,
+                   state_gid=dt.state_gid, num_groups=dt.num_groups)
+        got = kernels.launch_dense_walk(dt.table_flat, data_tm, bounds, **dkw)
+        torch.cuda.synchronize()
+        want = match_xla.dense_walk_plain(dt.table_flat, data_tm, bounds,
+                                          **dkw)
+        err = max_abs_err(torch, got, want)
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"[kernels] dense walk, {w['label']}: kernel differs from "
+                 f"plain (max_abs_err {err})")
+        line = (f"[kernels] dense_walk     {w['label']:22s} "
+                f"{dt.table_flat.dtype} table, [{T}, {C}] R16 with gcounts: "
+                f"counts, slots and gcounts equal, tolerance 0 "
+                f"({int(want[0].sum())} reports, max {int(want[0].max())} "
+                f"in a lane)")
+        if w["label"] == "bench workload":
+            ms = cuda_ms(torch, lambda: kernels.launch_dense_walk(
+                dt.table_flat, data_tm, bounds, **dkw), 10)
+            plain_ms = cuda_ms(torch, lambda: match_xla.dense_walk_plain(
+                dt.table_flat, data_tm, bounds, **dkw), 1)
+            times["dense_walk"] = dict(ms=ms, plain_ms=plain_ms,
+                                       max_abs_err=err)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                     f"({card_line})")
+        print(line, flush=True)
+    return times
+
+
 def oracle_events(pats, data: bytes):
     from tpu_pattern_matching.core.oracle_native import NativeOracle
 
@@ -180,66 +369,194 @@ def oracle_events(pats, data: bytes):
     return sorted(zip(off.tolist(), pid.tolist()))
 
 
-def run_session(torch, MatchSession, table, pats, data, label, card_line):
-    t0 = time.perf_counter()
-    sess = MatchSession(table, max_chunks=BATCH_LANES, chunk_len=CHUNK_LEN,
-                        device=DEVICE)
-    build_s = time.perf_counter() - t0
-    cfg = sess.bloom_table.cfg
-    want = oracle_events(pats, data)
-    sess.find(data[: 1 << 20])  # warm-up: allocator, first launches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = sess.find(data)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    if got != want:
-        fail(f"[slice] {label}: {len(got)} events, oracle {len(want)}; "
-             f"first difference "
-             f"{next((a, b) for a, b in zip(got + [None], want + [None]) if a != b)}")
-    mode = "sampled" if cfg.sampled else "strided"
-    print(f"[slice] {label}: {mode}_q{cfg.q}s{cfg.stride}w{cfg.w}k{cfg.kbanks}"
-          f"v{cfg.v} k_ref {sess._bloom.k_ref}, filter build {build_s:.2f} s; "
-          f"find over {len(data)} B -> {len(got)} events == native oracle; "
-          f"{len(data) / secs:.6g} B/s end to end (smoke number, {card_line}); "
-          f"refine overflows {sess.refine_overflows}", flush=True)
-    return mode
-
-
-def phase_slice(torch, kernels, card_line: str) -> dict:
+def make_workloads() -> list:
     from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching_torch.runtime.session import MatchSession
 
     rng = np.random.RandomState(42)  # bench.py's workload
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
             for _ in range(10_000)]
     t0 = time.perf_counter()
     table = compile_patterns(pats)
-    print(f"[slice] workload: {len(pats)} x 12 B signatures (seed 42), DFA "
-          f"{table.num_states} states in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"[workloads] {len(pats)} x 12 B signatures (seed 42), DFA "
+          f"{table.num_states} states ({table.goto_signed.dtype}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     drng = np.random.RandomState(7)
     data, n_planted = plant(drng, pats, STREAM_BYTES, DENSITY)
     small = [bytes(drng.randint(0, 256, size=12).astype(np.uint8))
              for _ in range(3)]
-    data_small, _ = plant(drng, small, STREAM_BYTES // 4, DENSITY)
-    small_table = compile_patterns(small)
+    data_small, n_small = plant(drng, small, STREAM_BYTES // 4, DENSITY)
+    out = []
+    for label, p, d, n in (("bench workload", pats, data, n_planted),
+                           ("3-pattern set", small, data_small, n_small)):
+        t = table if p is pats else compile_patterns(p)
+        out.append(dict(label=label, pats=p, table=t, data=d, n_planted=n,
+                        want=oracle_events(p, d)))
+    return out
 
-    for k in kernels.probe_launches:
-        kernels.probe_launches[k] = 0
-    modes = [
-        run_session(torch, MatchSession, table, pats, data,
-                    f"bench workload, {n_planted} planted", card_line),
-        run_session(torch, MatchSession, small_table, small, data_small,
-                    "3-pattern set", card_line),
-    ]
-    launches = dict(kernels.probe_launches)
+
+def timed_find(torch, sess, w, label):
+    sess.find(w["data"][: 1 << 20])  # warm-up: allocator, first launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sess.find(w["data"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = w["want"]
+    if got != want:
+        fail(f"[{label}] {w['label']}: {len(got)} events, oracle "
+             f"{len(want)}; first difference "
+             f"{next((a, b) for a, b in zip(got + [None], want + [None]) if a != b)}")
+    return len(w["data"]) / secs
+
+
+def cfg_name(cfg) -> str:
+    mode = "sampled" if cfg.sampled else "strided"
+    return f"{mode}_q{cfg.q}s{cfg.stride}w{cfg.w}k{cfg.kbanks}v{cfg.v}"
+
+
+def session(MatchSession, w, **kw):
+    return MatchSession(w["table"], max_chunks=BATCH_LANES,
+                        chunk_len=CHUNK_LEN, device=DEVICE, **kw)
+
+
+def phase_slice(torch, kernels, MatchSession, workloads, card_line) -> dict:
+    """The default path (bloom + host verify) on both workloads."""
+    reset(kernels)
+    modes = []
+    for w in workloads:
+        t0 = time.perf_counter()
+        sess = session(MatchSession, w)
+        build_s = time.perf_counter() - t0
+        cfg = sess.bloom_table.cfg
+        rate = timed_find(torch, sess, w, "slice")
+        modes.append("sampled" if cfg.sampled else "strided")
+        print(f"[slice] {w['label']}, {w['n_planted']} planted: "
+              f"{cfg_name(cfg)} k_ref {sess._bloom.k_ref}, filter build "
+              f"{build_s:.2f} s; find over {len(w['data'])} B -> "
+              f"{len(w['want'])} events == native oracle; {rate:.6g} B/s "
+              f"end to end (smoke number, {card_line}); refine overflows "
+              f"{sess.refine_overflows}", flush=True)
     if sorted(modes) != ["sampled", "strided"]:
         fail(f"[slice] the two sessions picked {modes}, not both modes")
-    if not all(launches.values()):
-        fail(f"[slice] a probe kernel was never launched: {launches}")
-    print(f"[slice] kernel launches on the main path: {launches}", flush=True)
-    return launches
+    return read_launches(kernels, "slice", ("sampled", "strided"))
+
+
+def phase_packed(torch, bloom, kernels, card_line) -> tuple[dict, dict]:
+    """hits(packed=True) vs hits(packed=False), s4 filter, bench shape."""
+    from tpu_pattern_matching_torch.ops.bloom import BloomFilterTable
+
+    rng = np.random.RandomState(3)
+    pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
+            for _ in range(300)]
+    bft = BloomFilterTable.build(pats, force=("strided", 4, 4, 6, 16))
+    words = torch.from_numpy(bft.words).to(DEVICE)
+    # the bench-shaped batch, with the filter's own patterns planted at
+    # 1e-2 so that true grams survive
+    data, bounds = planted_batch(torch, pats, seed=77)
+    cfg = bft.cfg
+    reset(kernels)
+    t_pk, b_pk = bloom.hits(data, bounds, words, cfg, packed=True)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels, "packed", ("strided_packed",))
+    t_by, b_by = bloom.hits(data, bounds, words, cfg, packed=False)
+    torch.cuda.synchronize()
+    if not torch.equal(b_pk, b_by) or int(t_pk[0]) != int(t_by[0]):
+        fail("[packed] hits(packed=True) and hits(packed=False) differ")
+    ab = []
+    for packed in (False, True, True, False):
+        ab.append(cuda_ms(torch, lambda: bloom.hits(
+            data, bounds, words, cfg, packed=packed), 20))
+    byte_ms = (ab[0] + ab[3]) / 2
+    packed_ms = (ab[1] + ab[2]) / 2
+    print(f"[packed] {cfg_name(cfg)} at [{data.shape[0]}, {data.shape[1]}]: "
+          f"bitmaps and totals equal ({int(t_pk[0])} survivors); prep + "
+          f"probe per batch: byte path {ab[0]:.4f}, {ab[3]:.4f} ms, packed "
+          f"path {ab[1]:.4f}, {ab[2]:.4f} ms (A, B, B, A; {card_line}); "
+          f"packed/byte {packed_ms / byte_ms:.4f}; PACKED_AUTO stays "
+          f"{bloom.PACKED_AUTO}", flush=True)
+    return launches, dict(byte_ms=byte_ms, packed_ms=packed_ms)
+
+
+def oracle_group_counts(sess, want) -> tuple[int, np.ndarray]:
+    """Per-group counts of the oracle's distinct match ends."""
+    ends: dict[int, set] = {}
+    for off, pid in want:
+        ends.setdefault(off, set()).add(pid)
+    gc = np.zeros(sess.table.num_groups, np.int64)
+    for pids in ends.values():
+        gc[sess._gid_of_pidset[tuple(sorted(pids))]] += 1
+    return len(ends), gc
+
+
+def stream_counts(sess, data: bytes):
+    from tpu_pattern_matching.runtime.buffers import StreamState
+
+    buf = sess.new_buffer()
+    fobj = io.BytesIO(data)
+    stream = StreamState(file_id=0)
+    total, gc = 0, None
+    while True:
+        code, rd = buf.add_stream(fobj, stream)
+        if buf.chunks and (code == -1 or rd == 0):
+            batch = buf.to_batch()
+            t, g = sess.decode_counts(batch, sess.scan(batch))
+            total += t
+            gc = g if gc is None else gc + g
+            buf.reset()
+        if rd == 0:
+            return total, gc
+
+
+def phase_verify(torch, kernels, MatchSession, workloads, card_line) -> dict:
+    """verify="device" on both workloads."""
+    from tpu_pattern_matching_torch.ops.verify_device import MAX_DEVICE_CAND
+
+    reset(kernels)
+    for w in workloads:
+        sess = session(MatchSession, w, verify="device")
+        totals = []
+        orig = sess._dvf.verify
+
+        def spy(data, bounds, bits, total, orig=orig, totals=totals):
+            totals.append(total)
+            return orig(data, bounds, bits, total)
+
+        sess._dvf.verify = spy
+        rate = timed_find(torch, sess, w, "verify")
+        n_ev, gc = stream_counts(sess, w["data"])
+        o_ev, o_gc = oracle_group_counts(sess, w["want"])
+        if n_ev != o_ev or not np.array_equal(gc, o_gc):
+            fail(f"[verify] {w['label']}: decode_counts {n_ev} events, "
+                 f"oracle {o_ev} distinct ends (per-group equal: "
+                 f"{np.array_equal(gc, o_gc)})")
+        if sess.device_verify_fallbacks:
+            fail(f"[verify] {w['label']}: {sess.device_verify_fallbacks} "
+                 f"batches fell back to host verify (largest probe total "
+                 f"{max(totals)}, cap {MAX_DEVICE_CAND})")
+        print(f"[verify] {w['label']}: {cfg_name(sess.bloom_table.cfg)}, "
+              f"find over {len(w['data'])} B -> {len(w['want'])} events == "
+              f"native oracle; decode_counts {n_ev} events == oracle's "
+              f"distinct ends, per group equal; largest unrefined probe "
+              f"total per batch {max(totals)} of cap {MAX_DEVICE_CAND} at "
+              f"{BATCH_LANES} lanes; fallbacks 0; sticky k_walk "
+              f"{sess._dvf._k_walk}; {rate:.6g} B/s end to end (smoke "
+              f"number, {card_line})", flush=True)
+    return read_launches(kernels, "verify",
+                         ("sampled", "strided", "window_walk"))
+
+
+def phase_dense(torch, kernels, MatchSession, workloads, card_line) -> dict:
+    """engine="dense" on both workloads (find raises on slot overflow)."""
+    reset(kernels)
+    for w in workloads:
+        sess = session(MatchSession, w, engine="dense")
+        rate = timed_find(torch, sess, w, "dense")
+        print(f"[dense] {w['label']}: table {sess.dev.nbytes} B "
+              f"({sess.dev.table_flat.dtype}), find over {len(w['data'])} B "
+              f"-> {len(w['want'])} events == native oracle, no result-slot "
+              f"overflow (R {sess.max_results}); {rate:.6g} B/s end to end "
+              f"(smoke number, {card_line})", flush=True)
+    return read_launches(kernels, "dense", ("dense_walk",))
 
 
 def main() -> None:
@@ -250,22 +567,32 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import tpu_pattern_matching_torch
     from tpu_pattern_matching_torch.ops import bloom, kernels
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
 
     if not tpu_pattern_matching_torch.__file__.startswith(HERE):
         fail(f"imported the port from {tpu_pattern_matching_torch.__file__}")
     card_line = card()
     phase_build(kernels, card_line)
-    times = phase_kernels(torch, bloom, kernels, card_line)
-    launches = phase_slice(torch, kernels, card_line)
+    times = phase_probes(torch, bloom, kernels, card_line)
+    workloads = make_workloads()
+    times.update(phase_walks(torch, kernels, workloads, card_line))
+    launches = phase_slice(torch, kernels, MatchSession, workloads,
+                           card_line)
+    packed_launches, _ab = phase_packed(torch, bloom, kernels, card_line)
+    launches["strided_packed"] = packed_launches["strided_packed"]
+    launches["window_walk"] = phase_verify(
+        torch, kernels, MatchSession, workloads, card_line)["window_walk"]
+    launches["dense_walk"] = phase_dense(
+        torch, kernels, MatchSession, workloads, card_line)["dense_walk"]
     if "jax" in sys.modules:
         fail("jax was imported")
     print("[no jax] 'jax' not in sys.modules", flush=True)
     summary = {"kernels": [
-        {"name": f"bloom_probe_{m}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[m], "launches": launches[m],
-         "max_abs_err": times[m]["max_abs_err"], "ms": times[m]["ms"],
-         "plain_ms": times[m]["plain_ms"]}
-        for m in ("sampled", "strided")
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[key],
+         "max_abs_err": times[key]["max_abs_err"], "ms": times[key]["ms"],
+         "plain_ms": times[key]["plain_ms"]}
+        for key, (name, src, rep) in KERNELS.items()
     ]}
     print(card_line)
     print(json.dumps(summary))

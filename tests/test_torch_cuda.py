@@ -1,4 +1,4 @@
-"""The CUDA probe kernels and the port's session on the card.
+"""The CUDA kernels and the port's sessions on the card.
 
 Marked ``cuda``: each test skips unless a CUDA device is present. Run on
 the machine with the GPU (which has no jax; ``TPM_TEST_TPU=1`` keeps
@@ -67,10 +67,10 @@ def test_kernel_equals_plain(cuda, spec):
     bp = bloom.pad_bounds(torch.from_numpy(np.stack([start, end])).to(cuda),
                           Cp)
     w = torch.from_numpy(words.astype(np.int32)).to(cuda)
-    before = kernels.probe_launches[spec[0]]
+    before = kernels.launches[spec[0]]
     k_bits, k_total = kernels.launch_probe(data_tm, bp, w, cfg)
     torch.cuda.synchronize()
-    assert kernels.probe_launches[spec[0]] == before + 1
+    assert kernels.launches[spec[0]] == before + 1
     p_bits, p_total = bloom.probe_bits_plain(data_tm, bp, w, cfg)
     assert torch.equal(k_bits, p_bits)
     assert int(k_total[0]) == int(p_total[0]) > 0
@@ -103,3 +103,113 @@ def test_session_on_cuda_equals_oracle(cuda):
     off, pid, total = NativeOracle(pats).match(data, cap=1 << 16)
     assert total == len(off) >= 290
     assert sess.find(data) == sorted(zip(off.tolist(), pid.tolist()))
+
+
+@pytest.mark.parametrize("spec", [(4, 4, 6, 16, False), (3, 8, 10, 2, True),
+                                  (8, 8, 3, 256, False)])
+def test_packed_kernel_equals_plain_and_byte_kernel(cuda, spec):
+    q, s, k, v, fold = spec
+    cfg = make_cfg("strided", q, s, k, v, fold, seed=4)
+    rng = np.random.RandomState(5)
+    C, T = 300, 1000
+    data = torch.from_numpy(
+        rng.randint(0, 256, size=(C, T)).astype(np.uint8)).to(cuda)
+    start = rng.randint(0, 20, size=C).astype(np.int32)
+    end = rng.randint(T - 50, T + 1, size=C).astype(np.int32)
+    end[::13] = start[::13]
+    bounds = torch.from_numpy(np.stack([start, end])).to(cuda)
+    w = torch.from_numpy(rng.randint(-(2**31), 2**31, size=(k, v, 128))
+                         .astype(np.int32)).to(cuda)
+    before = kernels.launches["strided_packed"]
+    p_total, p_bits = bloom.hits(data, bounds, w, cfg, packed=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["strided_packed"] == before + 1
+    b_total, b_bits = bloom.hits(data, bounds, w, cfg, packed=False)
+    assert torch.equal(p_bits, b_bits) and int(p_total[0]) == int(b_total[0])
+    data_pk, Cp = bloom.prep_time_major(data, cfg, packed=True)
+    pl_bits, pl_total = bloom.probe_bits_plain(
+        data_pk, bloom.pad_bounds(bounds, Cp), w, cfg)
+    assert torch.equal(p_bits, pl_bits) and int(pl_total[0]) > 0
+
+
+def walk_case(cuda, table_dtype, n_pats):
+    from tpu_pattern_matching_torch.ops.table import DeviceTable
+
+    rng = np.random.RandomState(n_pats)
+    pats = sorted({bytes(rng.choice(np.frombuffer(b"abc", np.uint8),
+                                    size=int(rng.randint(3, 9)))
+                         .astype(np.uint8)) for _ in range(n_pats)})
+    table = compile_patterns(pats)
+    table.goto_signed = table.goto_signed.astype(table_dtype)
+    C, T, halo = 700, 600, 8
+    data = rng.choice(np.frombuffer(b"abcd", np.uint8),
+                      size=(C, T)).astype(np.uint8)
+    start = np.where(rng.rand(C) < 0.5, 0, halo).astype(np.int32)
+    end = rng.randint(T - 40, T + 1, size=C).astype(np.int32)
+    end[::11] = start[::11]
+    return (DeviceTable.put(table, cuda), torch.from_numpy(data).to(cuda),
+            torch.from_numpy(np.stack([start, end])).to(cuda), halo)
+
+
+@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
+def test_window_walk_kernel_equals_plain(cuda, table_dtype):
+    from tpu_pattern_matching_torch.ops import verify_device
+
+    dt, data, bounds, halo = walk_case(cuda, table_dtype, 40)
+    C, T = data.shape
+    rng = np.random.RandomState(8)
+    keys = np.unique(rng.randint(0, C, size=3000) * T
+                     + rng.randint(0, T - 2, size=3000))
+    lane = np.full(3200, C, np.int32)
+    row = np.full(3200, 0x7FFFFFFF, np.int32)
+    lane[: len(keys)] = keys // T
+    row[: len(keys)] = keys % T
+    args = (dt.table_flat, data.reshape(-1), bounds,
+            torch.from_numpy(lane).to(cuda), torch.from_numpy(row).to(cuda),
+            torch.tensor([len(keys)], dtype=torch.int64, device=cuda))
+    kw = dict(C=C, T=T, alphabet_size=256, q=2, lmax=dt.max_pat_len,
+              halo=halo, steps=verify_device.walk_steps(dt.max_pat_len, 2))
+    before = kernels.launches["window_walk"]
+    rep, st = kernels.launch_window_walk(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["window_walk"] == before + 1
+    p_rep, p_st = verify_device.window_walk_plain(*args, **kw)
+    assert torch.equal(rep, p_rep) and torch.equal(st, p_st)
+    assert int(p_rep.sum()) > 100
+
+
+@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
+def test_dense_walk_kernel_equals_plain(cuda, table_dtype):
+    from tpu_pattern_matching_torch.ops import match_xla
+
+    dt, data, bounds, halo = walk_case(cuda, table_dtype, 30)
+    data_tm = data.t().contiguous()
+    kw = dict(alphabet_size=256, halo=halo, max_results=8,
+              state_gid=dt.state_gid, num_groups=dt.num_groups)
+    before = kernels.launches["dense_walk"]
+    got = kernels.launch_dense_walk(dt.table_flat, data_tm, bounds, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["dense_walk"] == before + 1
+    want = match_xla.dense_walk_plain(dt.table_flat, data_tm, bounds, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[0].max()) > 8  # lanes past their R slots
+
+
+def test_device_verify_and_dense_sessions_equal_oracle(cuda):
+    rng = np.random.RandomState(6)
+    pats = [bytes(rng.randint(0, 256, size=int(rng.randint(8, 20)))
+                  .astype(np.uint8)) for _ in range(300)]
+    data = bytearray(rng.randint(0, 256, size=1 << 19).astype(np.uint8))
+    for i, pos in enumerate(rng.randint(0, (1 << 19) - 20, size=200)):
+        p = pats[i % len(pats)]
+        data[pos : pos + len(p)] = p
+    data = bytes(data)
+    table = compile_patterns(pats)
+    off, pid, total = NativeOracle(pats).match(data, cap=1 << 16)
+    want = sorted(zip(off.tolist(), pid.tolist()))
+    for kw in (dict(verify="device"), dict(engine="dense")):
+        sess = MatchSession(table, max_chunks=256, chunk_len=1024,
+                            device=cuda, **kw)
+        assert sess.find(data) == want
+    assert sess.dev.table_flat.is_cuda

@@ -123,10 +123,10 @@ def test_kernel_body_on_host_equals_plain(spec):
 def test_cpu_probe_never_reaches_the_kernels():
     cfg = make_cfg("sampled", 4, 9, 6, 8)
     data, bounds = ragged_batch(6, 20, 100)
-    before = dict(kernels.probe_launches)
+    before = dict(kernels.launches)
     port_bloom.hits(torch.from_numpy(data), torch.from_numpy(bounds),
                     torch.from_numpy(random_words(cfg, 0)), cfg)
-    assert kernels.probe_launches == before
+    assert kernels.launches == before
     data_tm, Cp = port_bloom.prep_time_major(torch.from_numpy(data), cfg)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.launch_probe(

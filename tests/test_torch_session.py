@@ -190,8 +190,6 @@ def test_precompiled_reference_filter_gives_same_events():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="dense"), "item 6"),
-    (dict(verify="device"), "item 7"),
     (dict(pat_shards=2), "item 10"),
     (dict(mesh=2), "item 11"),
 ])
@@ -229,6 +227,10 @@ def test_port_imports_and_runs_without_jax():
         "chunk_len=64, device='cpu')\n"
         "got = s.find(b'xxabcdexx' * 20)\n"
         "assert len(got) == 40, got\n"
+        "for kw in (dict(verify='device'), dict(engine='dense')):\n"
+        "    s = session_for_patterns([b'abcd', b'cde'], max_chunks=4, "
+        "chunk_len=64, device='cpu', **kw)\n"
+        "    assert s.find(b'xxabcdexx' * 20) == got, kw\n"
         "mods = [m for m in sys.modules if m.startswith('jax') and "
         "sys.modules[m] is not None]\n"
         "assert not mods, mods\n"

@@ -1,16 +1,18 @@
 """PyTorch + CUDA port of ``tpu_pattern_matching`` for NVIDIA Hopper (H100).
 
 The JAX package beside this one is the reference; this package runs its
-default single-device pipeline — the q-gram bloom probe (hand-written CUDA
-kernels under ``csrc/``), on-device exact-gram refinement (torch ops) and
-the native host window verifier — and is held to the reference bit for bit
-by ``tests/test_torch_*.py``.
+single-device pipelines — the q-gram bloom probe with on-device exact-gram
+refinement and host or device verify, and the dense DFA engine — with
+every kernel hand-written in CUDA under ``csrc/``, and is held to the
+reference bit for bit by ``tests/test_torch_*.py``.
 
 Layout mirrors the reference so each module's counterpart is easy to find:
 
 - ``ops``     — the bloom filter (host build + device probe), the exact
-                gram table, candidate compaction, the CUDA kernel loader.
-- ``runtime`` — ``MatchSession`` (``engine="bloom"``, ``verify="host"``).
+                gram table, device verify, the dense table, walk and
+                compaction, the CUDA kernel loader.
+- ``runtime`` — ``MatchSession`` (``engine="bloom"`` with
+                ``verify="host"`` or ``"device"``, ``engine="dense"``).
 - ``utils``   — the explicit device resolver.
 
 Host modules with no JAX in them are imported from the reference package,

@@ -4,10 +4,12 @@
 // Replace the Pallas kernels of tpu_pattern_matching/ops/bloom.py:
 //   probe_sampled_kernel  <- _make_sampled_kernel (winnowing-sampled probe)
 //   probe_strided_kernel  <- _make_probe_kernel, packed=False (strided)
-// both launched by _probe_bits_jit. The reference ANDs one Pallas call per
+//   probe_strided_packed_kernel <- _make_probe_kernel, packed=True
+// all launched by _probe_bits_jit. The reference ANDs one Pallas call per
 // group of 8 banks; these kernels probe all k banks in one pass.
 //
-// Layout: data_tm [T, C] uint8 time-major, bounds [2, C] int32 (start_t,
+// Layout: data_tm [T, C] uint8 time-major (the packed kernel: [T/4, C]
+// uint32 words of 4 little-endian symbols), bounds [2, C] int32 (start_t,
 // end_t), words [k, v, 128] uint32. Output bits [T/(32*stride), C] int32:
 // bit b of bits[w, c] is the gram starting at row (w*32 + b)*stride of
 // lane c; *total += popcount of the whole bitmap (zeroed by the caller).
@@ -94,6 +96,30 @@ __global__ void __launch_bounds__(kBlockLanes) probe_strided_kernel(
   }
 }
 
+// Packed strided probe (tpm::strided_word_packed): the same output as
+// probe_strided_kernel, but a warp reads 128 bytes (32 words) per word row
+// instead of 32 bytes per symbol row, and the prep transpose before it
+// moves a quarter of the elements.
+__global__ void __launch_bounds__(kBlockLanes) probe_strided_packed_kernel(
+    const uint32_t* __restrict__ data, const int32_t* __restrict__ bounds,
+    const uint32_t* __restrict__ words, int32_t* __restrict__ bits,
+    int32_t* __restrict__ total, const ProbeParams p, int words_in_smem) {
+  extern __shared__ uint32_t smem_words[];
+  const uint32_t* wp = stage_words(words, smem_words, p, words_in_smem);
+  const int lane = blockIdx.y * kBlockLanes + threadIdx.x;
+  const int start = bounds[lane];
+  const int end = bounds[p.C + lane];
+  const int n_words = p.T / (32 * p.stride);
+  for (int k = 0; k < kWordsPerThread; ++k) {
+    const int wrow = blockIdx.x * kWordsPerThread + k;
+    if (wrow >= n_words) break;  // uniform across the block
+    const uint32_t acc =
+        tpm::strided_word_packed(data, wp, p, wrow, lane, start, end);
+    bits[(int64_t)wrow * p.C + lane] = (int32_t)acc;
+    add_total(total, acc);
+  }
+}
+
 size_t smem_bytes(const ProbeParams& p) {
   const size_t bytes = (size_t)p.kbanks * p.v * 128 * sizeof(uint32_t);
   return bytes <= kSmemWordsBytes ? bytes : 0;
@@ -150,6 +176,27 @@ int tpm_probe_strided(const void* data, const void* bounds, const void* words,
   probe_strided_kernel<<<grid_for(p), kBlockLanes, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int32_t*>(bounds),
+      static_cast<const uint32_t*>(words), static_cast<int32_t*>(bits),
+      static_cast<int32_t*>(total), p, smem > 0);
+  return (int)cudaGetLastError();
+}
+
+// T counts symbol rows (4 per row of the packed data).
+int tpm_probe_strided_packed(const void* data, const void* bounds,
+                             const void* words, void* bits, void* total,
+                             int T, int C, int q, int stride, int kbanks,
+                             int v, int fold, const void* mix1,
+                             const void* mix2, void* stream) {
+  ProbeParams p;
+  if (tpm::fill_params(p, T, C, q, stride, kbanks, v, 0, fold,
+                       static_cast<const int64_t*>(mix1),
+                       static_cast<const int64_t*>(mix2)) ||
+      stride % 4 || q > stride)
+    return tpm::kBadArgs;
+  const size_t smem = smem_bytes(p);
+  probe_strided_packed_kernel<<<grid_for(p), kBlockLanes, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(data), static_cast<const int32_t*>(bounds),
       static_cast<const uint32_t*>(words), static_cast<int32_t*>(bits),
       static_cast<int32_t*>(total), p, smem > 0);
   return (int)cudaGetLastError();

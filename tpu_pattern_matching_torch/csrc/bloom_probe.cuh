@@ -149,6 +149,44 @@ TPM_HD uint32_t strided_word(const uint8_t* data, const uint32_t* words,
   return acc;
 }
 
+// m1/m2 of the gram at symbol row `row` (a multiple of 4) of the PACKED
+// layout: [T/4, C] uint32 words of 4 little-endian symbols, so symbol
+// row r is byte r % 4 of word row r / 4. Each word is loaded once and its
+// bytes are taken with logical shifts.
+TPM_HD void gram_hashes_packed(const uint32_t* data, const ProbeParams& p,
+                               int row, int lane, uint32_t& m1,
+                               uint32_t& m2) {
+  m1 = 0u;
+  m2 = 0u;
+  const uint32_t* col = data + (int64_t)(row >> 2) * p.C + lane;
+  uint32_t word = 0u;
+  for (int i = 0; i < p.q; ++i) {
+    if ((i & 3) == 0) word = col[(int64_t)(i >> 2) * p.C];
+    uint32_t s = (word >> (8 * (i & 3))) & 255u;
+    if (p.fold) s = fold_ascii(s);
+    m1 += s * p.mix1[i];
+    m2 += s * p.mix2[i];
+  }
+}
+
+// One output word of the packed strided probe (stride % 4 == 0, so every
+// tested row starts a word): the same bits as strided_word on the byte
+// layout of the same batch. p.T counts symbol rows, not word rows.
+TPM_HD uint32_t strided_word_packed(const uint32_t* data,
+                                    const uint32_t* words,
+                                    const ProbeParams& p, int wrow, int lane,
+                                    int start, int end) {
+  uint32_t acc = 0u;
+  for (int j = 0; j < 32; ++j) {
+    const int row = (wrow * 32 + j) * p.stride;
+    if (!strided_row_valid(row, start, end, p)) continue;
+    uint32_t m1, m2;
+    gram_hashes_packed(data, p, row, lane, m1, m2);
+    acc = pack_bit(acc, probe_banks(words, p, m1, m2), j);
+  }
+  return acc;
+}
+
 // Validates the launch arguments (C a multiple of 128, T of 32*stride,
 // v a power of two, w = 0 for strided) and fills `p`; returns kBadArgs on arguments the
 // kernels do not take.

@@ -1,0 +1,157 @@
+// The signed-table DFA step and the per-thread bodies of both walk
+// kernels (dfa_walk.cu). Every function is __host__ __device__:
+// dfa_walk_host.cpp runs the same code on the CPU, so the tests can hold
+// the kernels' arithmetic to the reference without a GPU.
+//
+// Table layout (core/dfa.py DfaTable.goto_signed, flattened):
+// table[state * A + sym] is the next state, negated iff that state is
+// final. It is int16 when the automaton has fewer than 2^15 states, int32
+// otherwise; an entry is widened to int32 before its sign is dropped.
+#pragma once
+
+#include <stdint.h>
+
+#ifndef TPM_HD
+#ifdef __CUDACC__
+#define TPM_HD __host__ __device__ __forceinline__
+#else
+#define TPM_HD inline
+#endif
+#endif
+
+namespace tpm {
+
+constexpr int64_t kI32Max = 0x7FFFFFFF;
+constexpr int kWalkBadArgs = -1;  // entry-point code for rejected arguments
+
+// One step from `state` on `sym`: the state advances to |raw| only when
+// `valid`; the raw entry is returned, and raw < 0 means a match ends at
+// this symbol (the next state is final).
+template <typename TT>
+TPM_HD int32_t dfa_step(const TT* table, int A, int32_t& state, int32_t sym,
+                        bool valid) {
+  const int32_t raw = (int32_t)table[(int64_t)state * A + sym];
+  if (valid) state = raw < 0 ? -raw : raw;
+  return raw;
+}
+
+TPM_HD void add_one(int32_t* counter) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(counter, 1);
+#else
+  *counter += 1;
+#endif
+}
+
+struct WindowParams {
+  int C;     // lanes of the lane-major batch data [C, T]
+  int T;     // symbols per lane
+  int A;     // alphabet size (table row length)
+  int q;     // gram length of the filter
+  int lmax;  // longest pattern
+  int halo;  // prefix halo of every lane
+  int kw;    // candidate slots
+  int WLp;   // steps per window: 2*lmax - q rounded up to a multiple of 4
+};
+
+// Stage 3 of the reference's device verify (ops/verify_device.py
+// _verify_kernel) for candidate slot i: the window of the gram at `row`
+// of `lane` is walked from the root for exactly WLp steps, starting at
+// w0 = row - (lmax - q). Step t reads data[clip(lane*T + w0 + t)] and
+// advances only inside the lane's span [start_t, end_t); it reports iff
+// the entry is final and the end pos = w0 + t lies in [keep_lo, keep_hi):
+// keep_lo = max(row + q - 1, halo), keep_hi = min(next candidate row of
+// the same lane + q - 1, end_t). That interval gives every match end to
+// exactly one candidate. Slots at i >= n_valid (the sentinels of the
+// compaction) walk an empty span: no reports, state 0.
+// Writes rep[i, t] (0/1) and state[i, t] (after the step), row-major.
+template <typename TT>
+TPM_HD void window_walk(const TT* table, const uint8_t* data,
+                        const int32_t* bounds, const int32_t* lane,
+                        const int32_t* row, int64_t n_valid,
+                        const WindowParams& p, int i, uint8_t* rep,
+                        int32_t* state_out) {
+  const bool cand_valid = i < n_valid;
+  const int64_t r = row[i];
+  const int lane_c = lane[i] < p.C - 1 ? lane[i] : p.C - 1;
+  const int64_t st = cand_valid ? bounds[lane_c] : 0;
+  const int64_t en = cand_valid ? bounds[p.C + lane_c] : 0;
+  const int64_t w0 = r - (p.lmax - p.q);
+  const int64_t base = (int64_t)lane_c * p.T + w0;
+  const int64_t last = (int64_t)p.C * p.T - 1;
+  const int64_t keep_lo = r + p.q - 1 > p.halo ? r + p.q - 1 : p.halo;
+  const int64_t rnext =
+      (i + 1 < p.kw && lane[i + 1] == lane[i]) ? row[i + 1] : kI32Max;
+  int64_t keep_hi = rnext >= kI32Max - p.q ? kI32Max : rnext + p.q - 1;
+  if (en < keep_hi) keep_hi = en;
+  uint8_t* rep_i = rep + (int64_t)i * p.WLp;
+  int32_t* st_i = state_out + (int64_t)i * p.WLp;
+  int32_t state = 0;
+  for (int t = 0; t < p.WLp; ++t) {
+    const int64_t pos = w0 + t;
+    int64_t idx = base + t;
+    idx = idx < 0 ? 0 : (idx > last ? last : idx);
+    const bool valid = pos >= st && pos < en;
+    const int32_t raw = dfa_step(table, p.A, state, (int32_t)data[idx], valid);
+    rep_i[t] = (uint8_t)(raw < 0 && valid && pos >= keep_lo && pos < keep_hi);
+    st_i[t] = state;
+  }
+}
+
+struct DenseParams {
+  int T;     // time rows of data_tm [T, C]
+  int C;     // lanes
+  int A;     // alphabet size
+  int halo;  // reports only at t >= halo
+  int R;     // result slots per lane
+  int G;     // match groups (gcounts length)
+};
+
+// The reference's dense lane walk (ops/match_xla.py _scan_kernel) for
+// lane c of the time-major batch: state 0 at t = 0, advancing only inside
+// [start_t, end_t), so the walk runs over that span alone. A report is a
+// final entry at t >= halo: counts[c] counts them all, the first R fill
+// slot_state/slot_pos[c, :] with (state, t - halo), and, when state_gid is
+// given, every report adds one to gcounts[state_gid[state]].
+template <typename TT>
+TPM_HD void dense_walk_lane(const TT* table, const uint8_t* data_tm,
+                            const int32_t* bounds, const int32_t* state_gid,
+                            const DenseParams& p, int c, int32_t* counts,
+                            int32_t* slot_state, int32_t* slot_pos,
+                            int32_t* gcounts) {
+  const int start = bounds[c];
+  const int end = bounds[p.C + c];
+  const int t0 = start > 0 ? start : 0;
+  const int t1 = end < p.T ? end : p.T;
+  int32_t state = 0;
+  int32_t count = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int32_t raw = dfa_step(table, p.A, state,
+                                 (int32_t)data_tm[(int64_t)t * p.C + c], true);
+    if (raw < 0 && t >= p.halo) {
+      if (count < p.R) {
+        slot_state[(int64_t)c * p.R + count] = state;
+        slot_pos[(int64_t)c * p.R + count] = t - p.halo;
+      }
+      ++count;
+      if (gcounts) {
+        const int32_t gid = state_gid[state];
+        if (gid >= 0 && gid < p.G) add_one(gcounts + gid);
+      }
+    }
+  }
+  counts[c] = count;
+}
+
+inline bool window_params_ok(const WindowParams& p) {
+  return p.C > 0 && p.T > 0 && p.A > 0 && p.q >= 1 && p.lmax >= p.q &&
+         p.halo >= 0 && p.kw > 0 && p.WLp >= 2 * p.lmax - p.q &&
+         p.WLp % 4 == 0 && (int64_t)p.kw * p.WLp < ((int64_t)1 << 40);
+}
+
+inline bool dense_params_ok(const DenseParams& p) {
+  return p.T >= 0 && p.C > 0 && p.A > 0 && p.halo >= 0 && p.R >= 0 &&
+         p.G >= 0;
+}
+
+}  // namespace tpm

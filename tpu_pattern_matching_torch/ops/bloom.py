@@ -12,10 +12,12 @@ The device half runs one batch:
 
 1. ``prep_time_major`` pads lanes to 128 and time to the tile height and
    transposes to time-major, so a warp's 32 threads (one lane each) read
-   32 adjacent bytes per row;
+   32 adjacent bytes per row; its packed form (strided configs with
+   ``stride % 4 == 0``) transposes uint32 words of 4 bytes instead;
 2. ``probe_bits`` writes the survivor bitmap ``[T/(32*stride), Cp]`` and
    its popcount: the hand-written CUDA kernels of ``csrc/`` for a CUDA
-   tensor, the plain PyTorch version below for a CPU tensor;
+   tensor (sampled, strided, packed strided), the plain PyTorch version
+   below for a CPU tensor;
 3. ``hits_refined`` compacts the survivors, checks each against the exact
    inserted gram set (ops/exact_gram.py) and scatters the members into a
    fresh bitmap; past the ``k_ref`` capacity the unrefined bitmap passes
@@ -673,21 +675,59 @@ class BloomHits:
 
     meta: object  # torch [1] int32
     bits: object  # torch [W, Cp] int32
+    data: object = None  # torch [C, T] the batch the probe scanned, kept
+    bounds: object = None  # [2, C] for the device verify stage (else None)
 
 
-def prep_time_major(data, cfg: BloomConfig):
+PACKED_AUTO = False  # the policy of hits(packed=None), as in the
+# reference: the packed data path stays off until a benchmark on the card
+# shows it faster (the A/B is in chip_smoke.py and PERF.md)
+
+
+def packed_eligible(cfg: BloomConfig, dtype) -> bool:
+    """Can ``cfg`` probe the uint32-packed layout? Strided mode with
+    ``stride % 4 == 0`` over uint8 symbols: every tested row then starts a
+    word, and gram symbol i sits at byte i % 4 of word row + i // 4."""
+    import torch
+
+    return (not cfg.sampled) and cfg.stride % 4 == 0 and dtype == torch.uint8
+
+
+def prep_time_major(data, cfg: BloomConfig, packed: bool = False):
     """Pad a lane-major ``[C, T]`` batch to ``[Cp, Tp]`` (lanes to 128,
     time to ``cfg.tile_rows``) and transpose it: ``[Tp, Cp]`` contiguous,
-    zero padding. Returns ``(data_tm, Cp)``."""
+    zero padding. ``packed``: view each 4 bytes of a padded lane as one
+    int32 (byte 0 is the low byte, as the reference's bitcast) and
+    transpose the words: ``[Tp/4, Cp]`` int32. Returns ``(data_tm, Cp)``."""
     import torch
 
     C, T = data.shape
     tt = cfg.tile_rows
     Tp = -(-T // tt) * tt
     Cp = -(-C // 128) * 128
-    out = torch.zeros((Tp, Cp), dtype=data.dtype, device=data.device)
-    out[:T, :C] = data.t()
-    return out, Cp
+    if not packed:
+        out = torch.zeros((Tp, Cp), dtype=data.dtype, device=data.device)
+        out[:T, :C] = data.t()
+        return out, Cp
+    if not packed_eligible(cfg, data.dtype):
+        raise ValueError(f"packed probe needs a strided config with "
+                         f"stride % 4 == 0 and uint8 data, got {cfg} "
+                         f"{data.dtype}")
+    assert Tp % 4 == 0  # tile_rows = gt * stride, stride % 4 == 0
+    lm = torch.zeros((Cp, Tp), dtype=torch.uint8, device=data.device)
+    lm[:C, :T] = data
+    return lm.view(torch.int32).t().contiguous(), Cp
+
+
+def unpack_time_major(words):
+    """Packed ``[T/4, Cp]`` int32 -> ``[T, Cp]`` int64 symbols: symbol row
+    4r + j is byte j of word row r (a logical shift in int64)."""
+    import torch
+
+    w = words.to(torch.int64) & MASK32
+    j = torch.arange(4, dtype=torch.int64, device=words.device)
+    return ((w[:, None, :] >> (8 * j)[None, :, None]) & 255).reshape(
+        4 * words.shape[0], words.shape[1])
 
 
 def pad_bounds(bounds, Cp: int):
@@ -705,9 +745,10 @@ def probe_bits(data_tm, bounds, words, cfg: BloomConfig):
     """Survivor bitmap and popcount of one time-major batch.
 
     ``data_tm``: ``[T, Cp]`` uint8, T a multiple of ``cfg.tile_rows``, Cp a
-    multiple of 128; ``bounds``: ``[2, Cp]`` int32 (start_t, end_t);
-    ``words``: ``[k, v, 128]`` int32. Returns ``(bits [T/(32*stride), Cp]
-    int32, total [1] int32)``.
+    multiple of 128, or the packed ``[T/4, Cp]`` int32 of
+    ``prep_time_major(packed=True)``; ``bounds``: ``[2, Cp]`` int32
+    (start_t, end_t); ``words``: ``[k, v, 128]`` int32. Returns
+    ``(bits [T/(32*stride), Cp] int32, total [1] int32)``.
 
     A CUDA tensor goes to the hand-written kernel (ops/kernels.py) or
     raises; a CPU tensor goes to :func:`probe_bits_plain`."""
@@ -727,15 +768,21 @@ def probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
     contract as :func:`probe_bits`; the CPU path and the reference the
     kernels are held to on the GPU.
 
-    Reproduces both reference kernels exactly, including their one
+    Reproduces the reference kernels exactly, including their one
     asymmetry: the sampled mask has a ``start_t`` lower bound, the strided
-    mask does not (halo rows are probed)."""
+    mask does not (halo rows are probed). The packed layout (int32) is
+    unpacked to bytes first; its bitmap is the byte layout's."""
     import torch
 
-    T, Cp = data_tm.shape
+    if data_tm.dtype == torch.int32:
+        if not packed_eligible(cfg, torch.uint8):
+            raise ValueError(f"packed data_tm needs stride % 4 == 0: {cfg}")
+        d = unpack_time_major(data_tm)
+    else:
+        d = data_tm.to(torch.int64)
+    T, Cp = d.shape
     q, s, v = cfg.q, cfg.stride, cfg.v
     dev = data_tm.device
-    d = data_tm.to(torch.int64)
     if cfg.fold_case:
         d = torch.where((d >= 65) & (d <= 90), d + 32, d)
     start = bounds[0].to(torch.int64)[None, :]
@@ -786,15 +833,25 @@ def probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
     return to_int32(packed), total
 
 
-def hits(data, bounds, words, cfg: BloomConfig):
+def _use_packed(packed, cfg: BloomConfig, data) -> bool:
+    if packed is None:
+        return PACKED_AUTO and packed_eligible(cfg, data.dtype)
+    return bool(packed)
+
+
+def hits(data, bounds, words, cfg: BloomConfig, packed=None):
     """Pad + transpose + probe + popcount of one lane-major batch:
-    ``data [C, T]``, ``bounds [2, C]`` -> ``(total [1], bits [W, Cp])``."""
-    data_tm, Cp = prep_time_major(data, cfg)
+    ``data [C, T]``, ``bounds [2, C]`` -> ``(total [1], bits [W, Cp])``.
+
+    ``packed=None`` follows ``PACKED_AUTO``; True/False force the
+    uint32-packed (K3) or byte data path — the same bitmap either way."""
+    data_tm, Cp = prep_time_major(data, cfg, _use_packed(packed, cfg, data))
     bits, total = probe_bits(data_tm, pad_bounds(bounds, Cp), words, cfg)
     return total, bits
 
 
-def hits_refined(data, bounds, words, dx, cfg: BloomConfig, k_ref: int):
+def hits_refined(data, bounds, words, dx, cfg: BloomConfig, k_ref: int,
+                 packed=None):
     """Probe + exact-gram refinement: the emitted bitmap keeps only the
     candidates whose gram is literally in the inserted set.
 
@@ -804,14 +861,16 @@ def hits_refined(data, bounds, words, dx, cfg: BloomConfig, k_ref: int):
     bitmap (distinct candidates own distinct bits, so an int32 add of
     ``1 << b`` is their OR). If the candidates overflow ``k_ref``, the
     unrefined bitmap and total pass through unchanged — the host verifier
-    absorbs them, nothing is lost. No step syncs with the host."""
+    absorbs them, nothing is lost. No step syncs with the host.
+    ``packed`` picks the probe's data path, as in :func:`hits`; the
+    exact-gram check reads the lane-major batch either way."""
     import torch
 
     from .exact_gram import exact_member
     from .verify_device import bitmap_to_candidates
 
     C, T = data.shape
-    total0, bits = hits(data, bounds, words, cfg)
+    total0, bits = hits(data, bounds, words, cfg, packed)
     n_cand, lane, row, over = bitmap_to_candidates(bits, cfg.stride, k_ref)
     dev = bits.device
     slotv = torch.arange(k_ref, device=dev) < n_cand

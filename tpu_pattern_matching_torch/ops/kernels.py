@@ -1,18 +1,27 @@
-"""Build, load and launch the hand-written CUDA probe kernels (``csrc/``).
+"""Build, load and launch the hand-written CUDA kernels (``csrc/``).
 
-``bloom_probe.cu`` holds two ``__global__`` kernels for Hopper (sm_90a)
-with a plain C entry point each; they replace the Pallas kernels of the
-reference's ``ops/bloom.py`` (``_make_sampled_kernel`` and the byte path
-of ``_make_probe_kernel``, both launched by ``_probe_bits_jit``). The
-library is compiled with ``nvcc`` at first use into ``_build/`` (listed in
-``.gitignore``), rebuilt when a source is newer, and bound with
-``ctypes``. ``bloom_probe_host.cpp`` runs the same per-thread code on the
-CPU (built with ``g++``) so the tests can check the kernels' arithmetic
-without a GPU.
+Two libraries for Hopper (sm_90a), each with a plain C entry point per
+kernel, bound with ``ctypes``:
 
-``launch_probe`` is the only launcher. It takes CUDA tensors only and
-raises on anything else — there is no fallback: a CPU tensor never gets
-here (ops/bloom.probe_bits routes it to the plain PyTorch version).
+- ``bloom_probe.cu`` — the bloom probes. They replace the Pallas kernels of
+  the reference's ``ops/bloom.py``, all launched by ``_probe_bits_jit``:
+  ``_make_sampled_kernel`` (sampled), the byte path of
+  ``_make_probe_kernel`` (strided) and its uint32-packed path
+  (strided_packed).
+- ``dfa_walk.cu`` — the two DFA walks that the reference writes as XLA
+  ``lax.scan`` loops: the windowed candidate walk of device verify
+  (``ops/verify_device.py`` stage 3) and the dense engine's lane walk
+  (``ops/match_xla.py``).
+
+Each library is compiled with its own ``nvcc`` at first use into
+``_build/`` (listed in ``.gitignore``) and rebuilt when a source is newer;
+``build_all`` starts both compiles at once. ``*_host.cpp`` runs the same
+per-thread code on the CPU (built with ``g++``) so the tests can check the
+kernels' arithmetic without a GPU.
+
+The ``launch_*`` functions take CUDA tensors only and raise on anything
+else — there is no fallback: a CPU tensor never gets here (the ops modules
+route it to the plain PyTorch versions).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -32,23 +42,29 @@ from .bloom import MAX_SAMPLED_CONTEXT
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-HEADERS = ("bloom_probe.cuh",)
-CUDA_SOURCES = ("bloom_probe.cu",)
-HOST_SOURCES = ("bloom_probe_host.cpp",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared and local memory per kernel
 )
 GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+# library file -> (sources, headers it includes)
+LIBRARIES = {
+    "libtpm_probe_cuda.so": (("bloom_probe.cu",), ("bloom_probe.cuh",)),
+    "libtpm_probe_host.so": (("bloom_probe_host.cpp",), ("bloom_probe.cuh",)),
+    "libtpm_walk_cuda.so": (("dfa_walk.cu",), ("dfa_walk.cuh",)),
+    "libtpm_walk_host.so": (("dfa_walk_host.cpp",), ("dfa_walk.cuh",)),
+}
 
-# Kernel launches per mode; launch_probe adds one per launch and nothing
-# else touches them (chip_smoke.py resets and reads them).
-probe_launches = {"sampled": 0, "strided": 0}
-# The last compile in this process: {"seconds", "command", "log"}.
-last_build: dict = {}
+# Kernel launches per kernel; each launch_* function adds one per launch
+# and nothing else touches them (chip_smoke.py resets and reads them).
+launches = {"sampled": 0, "strided": 0, "strided_packed": 0,
+            "window_walk": 0, "dense_walk": 0}
+# The compiles of this process: library file -> {"seconds", "command", "log"}.
+builds: dict = {}
 
 _LOCK = threading.Lock()
+_LIB_LOCKS: dict = {}
 _LIBS: dict = {}
 
 
@@ -62,24 +78,23 @@ def find_nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the probe kernels are built from "
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
         "csrc/ with the CUDA toolkit at first use"
     )
 
 
-def _stale(lib: str, sources) -> bool:
+def _stale(lib: str, files) -> bool:
     if not os.path.exists(lib):
         return True
     built = os.path.getmtime(lib)
-    return any(
-        os.path.getmtime(os.path.join(CSRC_DIR, f)) > built
-        for f in (*sources, *HEADERS)
-    )
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, f)) > built
+               for f in files)
 
 
-def _compile(compiler: list, lib: str, sources) -> None:
+def _compile(compiler: list, name: str, sources) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    lib = os.path.join(BUILD_DIR, name)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [*compiler, "-o", tmp, *(os.path.join(CSRC_DIR, f) for f in sources)]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True)
@@ -88,61 +103,130 @@ def _compile(compiler: list, lib: str, sources) -> None:
             f"kernel build failed: {' '.join(cmd)}\n{r.stdout}{r.stderr}"
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
-    last_build.clear()
-    last_build.update(
+    builds[name] = dict(
         seconds=time.perf_counter() - t0, command=cmd,
         log=(r.stdout + r.stderr).strip(),
     )
 
 
-def _load(name: str, sources, compiler, bind) -> ctypes.CDLL:
+def _load(name: str, compiler, bind) -> ctypes.CDLL:
     with _LOCK:
+        lock = _LIB_LOCKS.setdefault(name, threading.Lock())
+    with lock:  # one build per library; different libraries in parallel
         if name not in _LIBS:
+            sources, headers = LIBRARIES[name]
             path = os.path.join(BUILD_DIR, name)
-            if _stale(path, sources):
-                _compile(compiler(), path, sources)
+            if _stale(path, (*sources, *headers)):
+                _compile(compiler(), name, sources)
             lib = ctypes.CDLL(path)
             bind(lib)
             _LIBS[name] = lib
         return _LIBS[name]
 
 
-def _bind_cuda(lib) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tpm_probe_sampled, lib.tpm_probe_strided):
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def _bind_probe_cuda(lib) -> None:
+    for fn in (lib.tpm_probe_sampled, lib.tpm_probe_strided,
+               lib.tpm_probe_strided_packed):
         fn.argtypes = [P] * 5 + [I] * 7 + [P] * 3
         fn.restype = I
     lib.tpm_error_string.argtypes = [I]
     lib.tpm_error_string.restype = ctypes.c_char_p
 
 
-def _bind_host(lib) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
+def _bind_probe_host(lib) -> None:
     lib.tpm_probe_host.argtypes = [I] + [P] * 5 + [I] * 8 + [P] * 2
     lib.tpm_probe_host.restype = I
 
 
+def _bind_walk(lib, stream: bool) -> None:
+    suffix = "" if stream else "_host"
+    tail = [P] if stream else []
+    fn = getattr(lib, "tpm_window_walk" + suffix)
+    fn.argtypes = [P, I] + [P] * 5 + [I] * 8 + [P] * 2 + tail
+    fn.restype = I
+    fn = getattr(lib, "tpm_dense_walk" + suffix)
+    fn.argtypes = [P, I] + [P] * 3 + [I] * 6 + [P] * 4 + tail
+    fn.restype = I
+    if stream:
+        lib.tpm_walk_error_string.argtypes = [I]
+        lib.tpm_walk_error_string.restype = ctypes.c_char_p
+
+
+def _nvcc():
+    return [find_nvcc(), *NVCC_FLAGS]
+
+
+def _gxx():
+    return ["g++", *GXX_FLAGS]
+
+
 def cuda_library() -> ctypes.CDLL:
-    """The CUDA kernel library, built on first use (needs ``nvcc``)."""
-    return _load(
-        "libtpm_probe_cuda.so", CUDA_SOURCES,
-        lambda: [find_nvcc(), *NVCC_FLAGS], _bind_cuda,
-    )
+    """The probe kernels' library, built on first use (needs ``nvcc``)."""
+    return _load("libtpm_probe_cuda.so", _nvcc, _bind_probe_cuda)
+
+
+def walk_library() -> ctypes.CDLL:
+    """The walk kernels' library, built on first use (needs ``nvcc``)."""
+    return _load("libtpm_walk_cuda.so", _nvcc,
+                 lambda lib: _bind_walk(lib, True))
+
+
+def build_all() -> None:
+    """Build (or load) every CUDA library, one ``nvcc`` each, all at once."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(cuda_library), pool.submit(walk_library)]:
+            fut.result()
 
 
 def host_library() -> ctypes.CDLL:
-    """The kernels' per-thread bodies compiled for the CPU (needs g++)."""
-    return _load(
-        "libtpm_probe_host.so", HOST_SOURCES,
-        lambda: ["g++", *GXX_FLAGS], _bind_host,
-    )
+    """The probe kernels' per-thread bodies compiled for the CPU (g++)."""
+    return _load("libtpm_probe_host.so", _gxx, _bind_probe_host)
+
+
+def walk_host_library() -> ctypes.CDLL:
+    """The walk kernels' per-thread bodies compiled for the CPU (g++)."""
+    return _load("libtpm_walk_host.so", _gxx,
+                 lambda lib: _bind_walk(lib, False))
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(rc: int, what: str, error_string) -> None:
+    if rc:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{error_string(rc).decode()} (code {rc})")
+
+
+def _same_device(ref, **tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{ref.device}")
+
+
+# ------------------------------------------------------------- the probes
 
 
 def _check(data_tm, bounds, words, cfg) -> tuple[int, int]:
-    if data_tm.dtype != torch.uint8 or data_tm.dim() != 2:
-        raise ValueError(f"data_tm must be 2-D uint8, got {data_tm.dtype} "
-                         f"{tuple(data_tm.shape)}")
-    T, Cp = data_tm.shape
+    """Validates a probe launch; returns (symbol rows T, lanes Cp). An
+    int32 ``data_tm`` is the packed layout ``[T/4, Cp]``."""
+    packed = data_tm.dtype == torch.int32
+    if data_tm.dim() != 2 or data_tm.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"data_tm must be 2-D uint8 (or int32 packed), got "
+                         f"{data_tm.dtype} {tuple(data_tm.shape)}")
+    if packed and (cfg.sampled or cfg.stride % 4 or cfg.q > cfg.stride):
+        raise ValueError(f"packed int32 data_tm needs a strided config with "
+                         f"stride % 4 == 0, got sampled={cfg.sampled} "
+                         f"stride={cfg.stride}")
+    T = data_tm.shape[0] * (4 if packed else 1)
+    Cp = data_tm.shape[1]
     if T % cfg.tile_rows or Cp % 128 or T == 0 or Cp == 0:
         raise ValueError(
             f"data_tm {T}x{Cp}: rows must be a multiple of the tile height "
@@ -156,13 +240,7 @@ def _check(data_tm, bounds, words, cfg) -> tuple[int, int]:
     ):
         raise ValueError(f"words must be int32 [{cfg.kbanks}, {cfg.v}, 128]"
                          f", got {words.dtype} {tuple(words.shape)}")
-    for name, t in (("data_tm", data_tm), ("bounds", bounds),
-                    ("words", words)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != data_tm.device:
-            raise ValueError(f"{name} is on {t.device}, data_tm on "
-                             f"{data_tm.device}")
+    _same_device(data_tm, data_tm=data_tm, bounds=bounds, words=words)
     if not 1 <= cfg.q <= 8 or cfg.v & (cfg.v - 1):
         raise ValueError(f"unsupported config q={cfg.q} v={cfg.v}")
     ctx = MAX_SAMPLED_CONTEXT
@@ -177,8 +255,15 @@ def _mixes(cfg):
     return (np.asarray(cfg.mix1, np.int64), np.asarray(cfg.mix2, np.int64))
 
 
+def probe_mode(data_tm, cfg) -> str:
+    if cfg.sampled:
+        return "sampled"
+    return "strided_packed" if data_tm.dtype == torch.int32 else "strided"
+
+
 def launch_probe(data_tm, bounds, words, cfg):
-    """Launch the probe kernel of ``cfg``'s mode on the current stream.
+    """Launch the probe kernel of ``cfg``'s mode on the current stream
+    (the packed strided kernel for an int32 ``data_tm``).
 
     Same contract as ``ops.bloom.probe_bits``; CUDA tensors only. Returns
     ``(bits [T/(32*stride), Cp] int32, total [1] int32)`` without
@@ -195,27 +280,24 @@ def launch_probe(data_tm, bounds, words, cfg):
     mix1, mix2 = _mixes(cfg)
     ptrs = (data_tm.data_ptr(), bounds.data_ptr(), words.data_ptr(),
             bits.data_ptr(), total.data_ptr())
+    mode = probe_mode(data_tm, cfg)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if cfg.sampled:
+        if mode == "sampled":
             rc = lib.tpm_probe_sampled(
                 *ptrs, T, Cp, cfg.q, cfg.kbanks, cfg.v, cfg.w,
                 int(cfg.fold_case), mix1.ctypes.data, mix2.ctypes.data,
-                stream,
+                _stream(dev),
             )
         else:
-            rc = lib.tpm_probe_strided(
+            fn = (lib.tpm_probe_strided_packed if mode == "strided_packed"
+                  else lib.tpm_probe_strided)
+            rc = fn(
                 *ptrs, T, Cp, cfg.q, cfg.stride, cfg.kbanks, cfg.v,
                 int(cfg.fold_case), mix1.ctypes.data, mix2.ctypes.data,
-                stream,
+                _stream(dev),
             )
-    mode = "sampled" if cfg.sampled else "strided"
-    if rc:
-        raise RuntimeError(
-            f"{mode} probe kernel launch failed: "
-            f"{lib.tpm_error_string(rc).decode()} (code {rc})"
-        )
-    probe_launches[mode] += 1
+    _raise_on(rc, f"{mode} probe", lib.tpm_error_string)
+    launches[mode] += 1
     return bits, total
 
 
@@ -226,8 +308,10 @@ def probe_on_host(data_tm, bounds, words, cfg):
     bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32)
     total = torch.zeros(1, dtype=torch.int32)
     mix1, mix2 = _mixes(cfg)
+    mode = ("strided", "sampled", "strided_packed").index(
+        probe_mode(data_tm, cfg))
     rc = host_library().tpm_probe_host(
-        int(cfg.sampled), data_tm.data_ptr(), bounds.data_ptr(),
+        mode, data_tm.data_ptr(), bounds.data_ptr(),
         words.data_ptr(), bits.data_ptr(), total.data_ptr(), T, Cp, cfg.q,
         cfg.stride, cfg.kbanks, cfg.v, cfg.w, int(cfg.fold_case),
         mix1.ctypes.data, mix2.ctypes.data,
@@ -235,3 +319,134 @@ def probe_on_host(data_tm, bounds, words, cfg):
     if rc:
         raise RuntimeError(f"host probe rejected its arguments (code {rc})")
     return bits, total
+
+
+# -------------------------------------------------------------- the walks
+
+
+def _check_table(table_flat, alphabet_size: int) -> int:
+    if table_flat.dim() != 1 or table_flat.dtype not in (torch.int16,
+                                                         torch.int32):
+        raise ValueError(f"table_flat must be 1-D int16 or int32, got "
+                         f"{table_flat.dtype} {tuple(table_flat.shape)}")
+    if alphabet_size < 1 or table_flat.shape[0] % alphabet_size:
+        raise ValueError(f"table_flat of {table_flat.shape[0]} entries is "
+                         f"not [S, {alphabet_size}]")
+    return int(table_flat.dtype == torch.int16)
+
+
+def _check_i32(name, t, shape) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be int32 {list(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _window_args(table_flat, data_flat, bounds, lane, row, n_valid, *, C,
+                 T, alphabet_size, q, lmax, halo, steps):
+    """Validates a window-walk launch; returns (args before the outputs,
+    rep, state) with the outputs allocated on the inputs' device."""
+    t16 = _check_table(table_flat, alphabet_size)
+    if data_flat.dtype != torch.uint8 or tuple(data_flat.shape) != (C * T,):
+        raise ValueError(f"data_flat must be uint8 [{C * T}], got "
+                         f"{data_flat.dtype} {tuple(data_flat.shape)}")
+    _check_i32("bounds", bounds, (2, C))
+    kw = lane.shape[0] if lane.dim() == 1 else -1
+    _check_i32("lane", lane, (kw,))
+    _check_i32("row", row, (kw,))
+    if n_valid.dtype != torch.int64 or n_valid.numel() != 1:
+        raise ValueError("n_valid must be one int64")
+    _same_device(table_flat, table_flat=table_flat, data_flat=data_flat,
+                 bounds=bounds, lane=lane, row=row, n_valid=n_valid)
+    dev = table_flat.device
+    rep = torch.empty((kw, steps), dtype=torch.uint8, device=dev)
+    state = torch.empty((kw, steps), dtype=torch.int32, device=dev)
+    args = (table_flat.data_ptr(), t16, data_flat.data_ptr(),
+            bounds.data_ptr(), lane.data_ptr(), row.data_ptr(),
+            n_valid.data_ptr(), C, T, alphabet_size, q, lmax, halo, kw,
+            steps, rep.data_ptr(), state.data_ptr())
+    return args, rep, state
+
+
+def launch_window_walk(table_flat, data_flat, bounds, lane, row, n_valid,
+                       **kw):
+    """Launch the windowed candidate walk (``ops.verify_device.window_walk``
+    has the contract); CUDA tensors only. Returns ``(rep [kw, steps]
+    uint8, state [kw, steps] int32)`` without synchronising."""
+    if not table_flat.is_cuda:
+        raise ValueError(f"launch_window_walk needs CUDA tensors, got "
+                         f"{table_flat.device}")
+    args, rep, state = _window_args(table_flat, data_flat, bounds, lane, row,
+                                    n_valid, **kw)
+    if rep.shape[0] == 0:
+        return rep, state
+    lib = walk_library()
+    dev = table_flat.device
+    with torch.cuda.device(dev):
+        rc = lib.tpm_window_walk(*args, _stream(dev))
+    _raise_on(rc, "window walk", lib.tpm_walk_error_string)
+    launches["window_walk"] += 1
+    return rep, state
+
+
+def window_walk_on_host(table_flat, data_flat, bounds, lane, row, n_valid,
+                        **kw):
+    """The window walk's per-thread code on the CPU (a test harness)."""
+    args, rep, state = _window_args(table_flat, data_flat, bounds, lane, row,
+                                    n_valid, **kw)
+    if rep.shape[0] and walk_host_library().tpm_window_walk_host(*args):
+        raise RuntimeError("host window walk rejected its arguments")
+    return rep, state
+
+
+def _dense_args(table_flat, data_tm, bounds, *, alphabet_size, halo,
+                max_results, state_gid=None, num_groups=0):
+    t16 = _check_table(table_flat, alphabet_size)
+    if data_tm.dtype != torch.uint8 or data_tm.dim() != 2:
+        raise ValueError(f"data_tm must be 2-D uint8, got {data_tm.dtype} "
+                         f"{tuple(data_tm.shape)}")
+    T, C = data_tm.shape
+    _check_i32("bounds", bounds, (2, C))
+    tensors = dict(table_flat=table_flat, data_tm=data_tm, bounds=bounds)
+    if state_gid is not None:
+        _check_i32("state_gid", state_gid, (state_gid.shape[0],))
+        tensors["state_gid"] = state_gid
+    _same_device(table_flat, **tensors)
+    dev = table_flat.device
+    R = max_results
+    counts = torch.empty(C, dtype=torch.int32, device=dev)
+    slot_state = torch.zeros((C, R), dtype=torch.int32, device=dev)
+    slot_pos = torch.zeros((C, R), dtype=torch.int32, device=dev)
+    gcounts = (None if state_gid is None else
+               torch.zeros(num_groups, dtype=torch.int32, device=dev))
+    args = (table_flat.data_ptr(), t16, data_tm.data_ptr(),
+            bounds.data_ptr(),
+            None if state_gid is None else state_gid.data_ptr(),
+            T, C, alphabet_size, halo, R, num_groups, counts.data_ptr(),
+            slot_state.data_ptr(), slot_pos.data_ptr(),
+            None if gcounts is None else gcounts.data_ptr())
+    return args, (counts, slot_state, slot_pos, gcounts)
+
+
+def launch_dense_walk(table_flat, data_tm, bounds, **kw):
+    """Launch the dense lane walk (``ops.match_xla.dense_walk`` has the
+    contract); CUDA tensors only. Returns ``(counts [C], slot_state [C, R],
+    slot_pos [C, R], gcounts [G] or None)`` without synchronising."""
+    if not table_flat.is_cuda:
+        raise ValueError(f"launch_dense_walk needs CUDA tensors, got "
+                         f"{table_flat.device}")
+    args, outs = _dense_args(table_flat, data_tm, bounds, **kw)
+    lib = walk_library()
+    dev = table_flat.device
+    with torch.cuda.device(dev):
+        rc = lib.tpm_dense_walk(*args, _stream(dev))
+    _raise_on(rc, "dense walk", lib.tpm_walk_error_string)
+    launches["dense_walk"] += 1
+    return outs
+
+
+def dense_walk_on_host(table_flat, data_tm, bounds, **kw):
+    """The dense walk's per-thread code on the CPU (a test harness)."""
+    args, outs = _dense_args(table_flat, data_tm, bounds, **kw)
+    if walk_host_library().tpm_dense_walk_host(*args):
+        raise RuntimeError("host dense walk rejected its arguments")
+    return outs

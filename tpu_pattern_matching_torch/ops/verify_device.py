@@ -1,15 +1,39 @@
-"""Candidate compaction for the device refinement (torch port of the
-reference's ``ops/verify_device.py``: ``next_cap``, ``MAX_DEVICE_CAND`` and
-``bitmap_to_candidates``; the device verify walk is not ported yet).
+"""Device-side exact verify for the bloom engine (torch port of the
+reference's ``ops/verify_device.py``).
+
+Candidates of the probe's survivor bitmap are verified on the device and
+come back as exact ``(lane, end_row, state)`` events plus per-group
+counts, with no host CPU in the loop. One dispatch (``verify_candidates``)
+runs the reference's ``_verify_kernel`` stage by stage:
+
+1-2. ``bitmap_to_candidates``: nonzero words, then their bits, compact to
+     ``(lane, row)`` candidates sorted by (lane, row);
+2.5. exact-gram refinement (``ops/exact_gram.exact_member``) erases the
+     bloom false positives and compacts the rest to ``k_walk`` slots;
+3.   ``window_walk``: each candidate's window ``[row-(lmax-q), row+lmax)``
+     is walked from the root with the signed dense table — the CUDA
+     kernel of ``csrc/dfa_walk.cu`` for a CUDA tensor, a plain PyTorch
+     loop over the window's steps for a CPU tensor. Match end ``e`` is
+     reported by the candidate ``i`` with ``r_i + q - 1 <= e < r_next + q
+     - 1`` (the next candidate of the same lane), so each match end has
+     exactly one owner;
+4.   the reports compact to events in (candidate, t) = (lane, end) order;
+5.   ``gcounts`` from the compacted events.
+
+``DeviceVerifier`` holds the table on the device and buckets the
+capacities from the probe's exact total, retrying the refined-candidate
+and event capacities on the exact counts the pipeline reports.
 
 The reference compacts with ``lax.top_k`` because a scatter is serialized
 on XLA:TPU; on the GPU a cumsum plus one scatter into a fixed capacity is
-the natural form. Shapes are fixed by the capacity, so nothing syncs with
-the host.
+the natural form. Shapes are fixed by the capacities, so no stage syncs
+with the host. Not ported: ``prefetch_windows`` (a workaround for the
+XLA:TPU gather cost) and the ``stages`` bench hook.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INT32_MAX = 0x7FFFFFFF
@@ -87,3 +111,237 @@ def bitmap_to_candidates(bits, stride: int, k_cand: int):
     )
     return (n_cand, lane.to(torch.int32), row.to(torch.int32),
             word_over | cand_over)
+
+
+# ------------------------------------------------------------ device verify
+
+
+def walk_steps(lmax: int, q: int) -> int:
+    """Steps of every candidate window: ``2*lmax - q`` rounded up to a
+    multiple of 4 (the reference's unroll; the extra steps walk past the
+    window and report nothing it would not)."""
+    return -(-(2 * lmax - q) // 4) * 4
+
+
+def window_walk(table_flat, data_flat, bounds, lane, row, n_valid, *, C: int,
+                T: int, alphabet_size: int, q: int, lmax: int, halo: int):
+    """Stage 3: walk every candidate slot's window from the root state.
+
+    ``table_flat``: ``[S*A]`` int16 or int32 signed table; ``data_flat``:
+    the lane-major batch ``[C*T]`` uint8; ``bounds``: ``[2, C]`` int32;
+    ``lane``/``row``: ``[kw]`` int32 candidates sorted by (lane, row), the
+    slots at or past ``n_valid`` (one int64) being sentinels. Slot i walks
+    ``walk_steps(lmax, q)`` steps from ``w0 = row - (lmax - q)``, reading
+    ``data_flat[clip(lane*T + w0 + t)]``; the state advances only inside
+    the lane's ``[start_t, end_t)``, and step t reports iff its entry is
+    final and ``w0 + t`` lies in ``[max(row + q - 1, halo), min(r_next +
+    q - 1, end_t))``, ``r_next`` being the next slot's row when it has the
+    same lane. Returns ``(rep [kw, steps] uint8, state [kw, steps]
+    int32)``, candidate-major.
+
+    A CUDA tensor goes to the kernel of ``csrc/dfa_walk.cu`` (or raises),
+    a CPU tensor to :func:`window_walk_plain`."""
+    kw = dict(C=C, T=T, alphabet_size=alphabet_size, q=q, lmax=lmax,
+              halo=halo, steps=walk_steps(lmax, q))
+    n_valid = n_valid.reshape(1)
+    if table_flat.is_cuda:
+        from tpu_pattern_matching_torch.ops import kernels
+
+        return kernels.launch_window_walk(table_flat, data_flat, bounds,
+                                          lane, row, n_valid, **kw)
+    if table_flat.device.type != "cpu":
+        raise ValueError(f"no window walk for device {table_flat.device}")
+    return window_walk_plain(table_flat, data_flat, bounds, lane, row,
+                             n_valid, **kw)
+
+
+def window_walk_plain(table_flat, data_flat, bounds, lane, row, n_valid, *,
+                      C: int, T: int, alphabet_size: int, q: int, lmax: int,
+                      halo: int, steps: int):
+    """Plain PyTorch version of the window-walk kernel: one vectorised
+    step over all slots per window step, in int64 (no wraparound). Same
+    contract as :func:`window_walk`; the CPU path, and what the kernel is
+    held to on the card."""
+    kw = lane.shape[0]
+    dev = lane.device
+    cand_valid = torch.arange(kw, device=dev) < n_valid.reshape(())
+    lane64 = lane.to(torch.int64)
+    r = row.to(torch.int64)
+    lane_c = lane64.clamp(max=C - 1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    st = torch.where(cand_valid, bounds[0].to(torch.int64)[lane_c], zero)
+    en = torch.where(cand_valid, bounds[1].to(torch.int64)[lane_c], zero)
+    w0 = r - (lmax - q)
+    base = lane_c * T + w0
+    keep_lo = (r + q - 1).clamp(min=halo)
+    big = torch.full((1,), INT32_MAX, dtype=torch.int64, device=dev)
+    rnext = torch.cat([torch.where(lane64[1:] == lane64[:-1], r[1:], big),
+                       big])
+    keep_hi = torch.minimum(
+        torch.where(rnext >= INT32_MAX - q, big, rnext + q - 1), en)
+    state = torch.zeros(kw, dtype=torch.int64, device=dev)
+    reps, states = [], []
+    for t in range(steps):
+        pos = w0 + t
+        sym = data_flat[(base + t).clamp(0, C * T - 1)].to(torch.int64)
+        raw = table_flat[state * alphabet_size + sym].to(torch.int64)
+        valid = (pos >= st) & (pos < en)
+        state = torch.where(valid, raw.abs(), state)
+        reps.append((raw < 0) & valid & (pos >= keep_lo) & (pos < keep_hi))
+        states.append(state)
+    return (torch.stack(reps, 1).to(torch.uint8),
+            torch.stack(states, 1).to(torch.int32))
+
+
+def verify_candidates(table_flat, state_gid, data, bounds, bits, dx=None, *,
+                      alphabet_size: int, stride: int, q: int, lmax: int,
+                      halo: int, k_cand: int, k_ev: int, num_groups: int,
+                      k_walk: int | None = None):
+    """The reference's ``_verify_kernel`` (stages 1-5) on one batch.
+
+    ``data [C, T]`` uint8 and ``bounds [2, C]`` are the batch the probe
+    scanned, ``bits [W, Cb]`` its survivor bitmap; ``dx`` the exact-gram
+    table (``ops/exact_gram.DeviceExact``) or None for no refinement.
+    Returns device tensors ``(meta [5], packed [3, k_ev], gcounts [G])``:
+    ``meta = [n_events, reported, n_cand, flags, n_exact]`` with flags bit
+    0 = candidate overflow, bit 1 = event overflow (``n_events`` stays
+    exact), bit 2 = refined-candidate (``k_walk``) overflow (``n_exact``
+    stays exact); ``packed`` = (lane, end_row, state) in (lane, end_row)
+    order, fill (-1, -1, 0)."""
+    C, T = data.shape
+    Cb = bits.shape[1]
+    G = num_groups
+    dev = bits.device
+    # ---- stages 1+2: bitmap -> compacted (lane, row) candidates
+    n_cand, lane, row, cand_over = bitmap_to_candidates(bits, stride, k_cand)
+    data_flat = data.reshape(-1)
+    # ---- stage 2.5: exact-gram refinement (erase bloom false positives)
+    if dx is not None:
+        from .exact_gram import exact_member
+
+        slotv = torch.arange(k_cand, device=dev) < n_cand
+        base = (lane.to(torch.int64).clamp(max=C - 1) * T
+                + row.to(torch.int64).clamp(max=T - 1))
+        keep = exact_member(dx, data_flat, base, slotv)
+        kw = k_walk if k_walk is not None else k_cand
+        n_exact, (lane, row), refine_over = _compact(
+            keep, [(lane, Cb), (row, INT32_MAX)], kw)
+    else:
+        kw = k_cand
+        n_exact = n_cand
+        refine_over = torch.zeros((), dtype=torch.bool, device=dev)
+    base_flags = (cand_over.to(torch.int32)
+                  | (refine_over.to(torch.int32) << 2))
+    # ---- stage 3: windowed walk (the kernel)
+    rep, st = window_walk(table_flat, data_flat, bounds, lane, row, n_exact,
+                          C=C, T=T, alphabet_size=alphabet_size, q=q,
+                          lmax=lmax, halo=halo)
+    steps = rep.shape[1]
+    # ---- stage 4: event compaction in (candidate, t) order, which is
+    # (lane, end) order: the keep intervals are disjoint and ascend
+    t_of = torch.arange(steps, dtype=torch.int64, device=dev)
+    e_cm = (row.to(torch.int64) - (lmax - q))[:, None] + t_of[None, :]
+    n_ev, (ev_lane, ev_end, ev_state), ev_over = _compact(
+        rep.reshape(-1) != 0,
+        [(lane[:, None].expand(kw, steps).reshape(-1), -1),
+         (e_cm.reshape(-1).clamp(-1, INT32_MAX).to(torch.int32), -1),
+         (st.reshape(-1), 0)],
+        k_ev,
+    )
+    # ---- stage 5: per-group counts from the compacted events
+    reported = n_ev.clamp(max=k_ev)
+    live = torch.arange(k_ev, device=dev) < reported
+    gid = state_gid[ev_state.to(torch.int64).clamp(0, state_gid.shape[0] - 1)]
+    gidx = torch.where(live & (gid >= 0), gid.to(torch.int64), G)
+    gcounts = torch.zeros(G + 1, dtype=torch.int32, device=dev).index_add_(
+        0, gidx, live.to(torch.int32))[:G]
+    flags = base_flags | (ev_over.to(torch.int32) << 1)
+    meta = torch.stack([
+        n_ev, reported, n_cand.clamp(max=INT32_MAX), flags.to(torch.int64),
+        n_exact.clamp(max=INT32_MAX),
+    ]).to(torch.int32)
+    return meta, torch.stack([ev_lane, ev_end, ev_state]), gcounts
+
+
+class CapacityExceeded(RuntimeError):
+    """A batch holds more candidates than ``MAX_DEVICE_CAND``: the caller
+    verifies it on the host (the reference's capacity policy)."""
+
+
+class DeviceVerifier:
+    """Session-side wrapper: ships the dense table once, buckets capacities.
+
+    ``verify(data, bounds, bits, total)`` dispatches with the next bucketed
+    candidate capacity >= the probe's exact survivor total (so candidate
+    overflow cannot happen), and retries the refined-candidate and event
+    capacities on the exact counts reported back. The int16 table stays
+    int16 on the device."""
+
+    def __init__(self, table, cfg, halo: int, device, gram_keys=None):
+        self.table_flat = torch.from_numpy(
+            np.ascontiguousarray(table.goto_signed).reshape(-1)).to(device)
+        self.state_gid = torch.from_numpy(
+            table.state_gid.astype(np.int32)).to(device)
+        self.alphabet_size = table.alphabet_size
+        self.lmax = table.max_pat_len
+        self.num_groups = table.num_groups
+        self.stride = cfg.stride
+        self.q = cfg.q
+        self.halo = halo
+        # exact-gram refinement: the filter's inserted gram set erases the
+        # bloom false positives before the walk; None runs unrefined
+        self.exact = None
+        self._k_walk = 256  # sticky refined-capacity bucket
+        if gram_keys is not None and len(gram_keys):
+            from .exact_gram import DeviceExact, table_from_keys
+
+            xt = table_from_keys(
+                gram_keys, cfg.q,
+                bits=(table.alphabet_size - 1).bit_length())
+            self.exact = DeviceExact.put(xt, cfg.fold_case, device)
+
+    def _dispatch(self, data, bounds, bits, k_cand: int, k_ev: int,
+                  k_walk: int):
+        """One pipeline run; ``meta`` comes back to the host (the one
+        sync of the dispatch), the rest stays on the device."""
+        meta, packed, gcounts = verify_candidates(
+            self.table_flat, self.state_gid, data, bounds, bits, self.exact,
+            alphabet_size=self.alphabet_size, stride=self.stride, q=self.q,
+            lmax=self.lmax, halo=self.halo, k_cand=k_cand, k_ev=k_ev,
+            num_groups=self.num_groups, k_walk=k_walk,
+        )
+        return meta.cpu().numpy(), packed, gcounts
+
+    def verify(self, data, bounds, bits, total: int):
+        """(meta, packed[:, :reported], gcounts) as host arrays. Raises
+        ``CapacityExceeded`` when ``total`` exceeds ``MAX_DEVICE_CAND``
+        (the caller verifies that batch on the host) and RuntimeError if
+        a bucketed candidate capacity still overflowed."""
+        if total > MAX_DEVICE_CAND:
+            raise CapacityExceeded(
+                f"{total} candidates exceed the device-verify cap "
+                f"{MAX_DEVICE_CAND}; use host verify for this batch")
+        k_cand = next_cap(total)
+        if self.exact is None:
+            k_walk = k_ev = k_cand
+        else:
+            k_walk = k_ev = min(k_cand, self._k_walk)
+        meta, packed, gc = self._dispatch(data, bounds, bits, k_cand, k_ev,
+                                          k_walk)
+        if meta[3] & 4:  # refine overflow: retry with the exact need
+            k_walk = k_ev = min(k_cand, next_cap(int(meta[4])))
+            meta, packed, gc = self._dispatch(data, bounds, bits, k_cand,
+                                              k_ev, k_walk)
+        if meta[3] & 2:  # event overflow: retry with the exact need
+            k_ev = next_cap(int(meta[0]))
+            meta, packed, gc = self._dispatch(data, bounds, bits, k_cand,
+                                              k_ev, k_walk)
+        if self.exact is not None:
+            # adapt the sticky refined bucket to what this batch needed
+            self._k_walk = next_cap(int(meta[4]))
+        if meta[3] & 1:
+            raise RuntimeError(
+                "device verify candidate overflow with a bucketed "
+                "capacity: probe total and bitmap disagree")
+        reported = int(meta[1])
+        return meta, packed[:, :reported].cpu().numpy(), gc.cpu().numpy()

@@ -1,18 +1,27 @@
-"""Match session on one torch device: compiled table + bloom probe +
-host verify (port of the reference's ``runtime/session.py``).
+"""Match session on one torch device (port of the reference's
+``runtime/session.py``): compiled table + device engine + result decoding.
 
-This is the reference's default pipeline — ``engine="bloom"``,
-``verify="host"``, on-device exact-gram refinement, one device. Each
-batch is uploaded (a blocking copy: ``scan_stream`` reuses a host buffer
-once ``depth + 1`` batches are in flight), probed by the CUDA kernel (or
-its plain PyTorch version on the CPU), refined on the device, and decoded
-with at most two transfers: the survivor total, then the bitmap only if
-the total is not zero. The native window walker of the reference
-(``runtime/verify.py``, shared) turns candidates into exact events.
+Three single-device pipelines, as in the reference:
+
+- ``engine="bloom"``, ``verify="host"`` (the default): each batch is
+  uploaded (a blocking copy: ``scan_stream`` reuses a host buffer once
+  ``depth + 1`` batches are in flight), probed by the CUDA kernel (or its
+  plain PyTorch version on the CPU), refined on the device with the exact
+  gram set, and decoded with at most two transfers: the survivor total,
+  then the bitmap only if the total is not zero. The reference's native
+  window walker (``runtime/verify.py``, shared) turns candidates into
+  exact events.
+- ``engine="bloom"``, ``verify="device"``: the probe's candidates are
+  refined, walked and compacted into exact events on the device
+  (``ops/verify_device.py``, the window-walk kernel); past
+  ``MAX_DEVICE_CAND`` candidates a batch is verified on the host, and
+  ``device_verify_fallbacks`` counts those batches.
+- ``engine="dense"``: every lane walks the whole DFA on the device
+  (``ops/match_xla.py``, the dense-walk kernel) and the per-lane result
+  slots compact into match tuples (``ops/compact.py``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue-1 item): the dense engine, device verify, pattern shards, meshes
-and the ushort alphabet.
+queue-1 item): pattern shards, meshes and the ushort alphabet.
 """
 
 from __future__ import annotations
@@ -31,6 +40,10 @@ from tpu_pattern_matching.runtime.buffers import (
     StreamState,
 )
 from tpu_pattern_matching_torch.ops.bloom import BloomHits
+from tpu_pattern_matching_torch.ops.compact import (
+    CompactMatches,
+    per_group_counts,
+)
 from tpu_pattern_matching_torch.utils.device import resolve_device
 
 
@@ -76,6 +89,7 @@ class MatchSession:
         table: DfaTable,
         max_chunks: int = 1024,
         chunk_len: int = 1024,
+        max_results: int = 16,
         halo: int | None = None,
         sort: bool = False,
         engine: str = "auto",
@@ -90,11 +104,23 @@ class MatchSession:
         ``"cpu"`` (the plain PyTorch versions of the kernels), a
         ``torch.device`` or a CUDA ordinal — never switched silently.
 
-        ``engine``: "bloom", or "auto", which is bloom for byte-alphabet
-        tables (the only tables this package takes yet). ``verify``:
-        "host" or "auto" (= host). ``bloom_table``: a precompiled filter
-        of this package (``BloomFilterTable.load`` or ``from_reference``)
-        skips the chooser."""
+        ``engine``: "bloom" (q-gram bloom probe + exact verify), "dense"
+        (the exact DFA walk of every lane on the device, with
+        ``max_results`` result slots per lane and exact counts past
+        them), or "auto". The reference's "auto" is bloom for byte tables
+        on a TPU (``on_tpu()``) and dense elsewhere; here the card plays
+        the TPU's part, and "auto" is bloom for byte tables on any
+        device (the CPU runs the kernels' plain versions). Byte tables
+        are the only tables this package takes yet.
+
+        ``verify`` (bloom engine; "n/a" for dense): "host" (native window
+        walker on the CPU), "device" (window walk on the device: exact
+        events and per-group counts; a batch past ``MAX_DEVICE_CAND``
+        candidates is verified on the host instead and counted in
+        ``device_verify_fallbacks``), or "auto" (= host).
+        ``bloom_table``: a precompiled filter of this package
+        (``BloomFilterTable.load`` or ``from_reference``) skips the
+        chooser."""
         from tpu_pattern_matching.runtime.verify import Verifier
         from tpu_pattern_matching.utils.common import pad_halo
         from tpu_pattern_matching.utils.debug import dprint
@@ -115,21 +141,42 @@ class MatchSession:
             raise ValueError(f"pat_shards must be >= 1, got {pat_shards}")
         if table.alphabet_size != 256:
             raise _not_ported("the ushort alphabet", "item 8")
-        if engine == "dense":
-            raise _not_ported("engine='dense'", "item 6")
-        if verify == "device":
-            raise _not_ported("verify='device'", "item 7")
         if pat_shards > 1:
             raise _not_ported("pat_shards > 1", "item 10")
         if mesh is not None:
             raise _not_ported("mesh=", "item 11")
-        self.engine = "bloom"
-        self.verify_mode = "host"
+        if engine == "auto":
+            engine = "bloom"
+        self.engine = engine
+        self.verify_mode = (
+            "host" if verify == "auto" else verify
+        ) if engine == "bloom" else "n/a"
         self.device = resolve_device(device)
         self.table = table
         self.max_chunks = max_chunks
         self.chunk_len = chunk_len
+        self.max_results = max_results
         self.sort = sort
+        base_halo = (table.max_pat_len - 1) if halo is None else halo
+        self.halo = pad_halo(base_halo, chunk_len)
+        # batches whose candidates overflowed the refinement capacity
+        # (their unrefined bitmap went to the host verifier)
+        self.refine_overflows = 0
+        # device-verify batches past MAX_DEVICE_CAND, verified on the host
+        self.device_verify_fallbacks = 0
+        self._bloom = self._verifier = self._dvf = self.dev = None
+        self.bloom_table = None
+        self._groups = table.groups_as_lists()
+        self._gid_of_pidset = {
+            tuple(sorted(pids)): g for g, pids in enumerate(self._groups)
+        }
+        if engine == "dense":
+            from tpu_pattern_matching_torch.ops.table import DeviceTable
+
+            self.dev = DeviceTable.put(table, self.device)
+            dprint(1, "session: engine=dense chunks=%dx%d halo=%d device=%s",
+                   max_chunks, chunk_len, self.halo, self.device)
+            return
         bft = (
             bloom_table
             if bloom_table is not None
@@ -145,12 +192,16 @@ class MatchSession:
             fold_case=bft.cfg.fold_case,
             dense_table=table,  # fast native window walker
         )
-        base_halo = (table.max_pat_len - 1) if halo is None else halo
-        self.halo = pad_halo(base_halo, chunk_len)
-        # batches whose candidates overflowed the refinement capacity
-        # (their unrefined bitmap went to the host verifier)
-        self.refine_overflows = 0
-        if bft.gram_keys is not None and len(bft.gram_keys):
+        if self.verify_mode == "device":
+            from tpu_pattern_matching_torch.ops.verify_device import (
+                DeviceVerifier,
+            )
+
+            # the verify stage refines its own candidates: the probe
+            # attaches no refinement of its own
+            self._dvf = DeviceVerifier(table, bft.cfg, self.halo,
+                                       self.device, gram_keys=bft.gram_keys)
+        elif bft.gram_keys is not None and len(bft.gram_keys):
             # refine the survivor bitmap on the device with the exact
             # inserted gram set, so the host walks only true gram
             # occurrences; the capacity comes from the chooser's modeled
@@ -162,29 +213,78 @@ class MatchSession:
                 max(2048, REFINE_HEADROOM * rate * batch_positions),
             )))
             self._bloom.attach_exact(bft.gram_keys, k_ref, bits=bft.gram_bits)
-        dprint(1, "session: engine=bloom chunks=%dx%d halo=%d device=%s",
-               max_chunks, chunk_len, self.halo, self.device)
-        self._groups = table.groups_as_lists()
-        self._gid_of_pidset = {
-            tuple(sorted(pids)): g for g, pids in enumerate(self._groups)
-        }
+        dprint(1, "session: engine=bloom verify=%s chunks=%dx%d halo=%d "
+               "device=%s", self.verify_mode, max_chunks, chunk_len,
+               self.halo, self.device)
 
     # ------------------------------------------------------------- plumbing
 
     def new_buffer(self) -> DataBuffer:
         return DataBuffer(self.max_chunks, self.chunk_len, self.halo)
 
-    def scan(self, batch: HostBatch) -> BloomHits:
-        """Upload one batch (blocking) and run probe + refinement on the
-        device; returns the device-resident ``BloomHits``."""
+    def scan(self, batch: HostBatch):
+        """Upload one batch (blocking) and run the device engine: probe +
+        refinement (``BloomHits``; with device verify it keeps the
+        uploaded arrays for the verify stage) or the dense walk +
+        compaction (``CompactMatches``)."""
+        from tpu_pattern_matching_torch.ops.compact import scan_and_compact
+
         data = torch.from_numpy(batch.data).to(self.device)
         bounds = torch.from_numpy(
             np.stack([batch.start_t, batch.end_t])
         ).to(self.device)
-        return self._bloom.hits(data, bounds)
+        if self.dev is not None:
+            return scan_and_compact(
+                self.dev, data, bounds, halo=batch.halo,
+                max_results=self.max_results, sort=self.sort,
+                chunk_len=self.chunk_len,
+            )
+        h = self._bloom.hits(data, bounds)
+        if self._dvf is not None:
+            h.data, h.bounds = data, bounds
+        return h
 
-    def decode(self, batch: HostBatch, comp: BloomHits) -> BatchMatches:
-        return self._decode_bloom(batch, comp)
+    def decode(self, batch: HostBatch, comp) -> BatchMatches:
+        """Exact events of one batch; for the dense engine at most two
+        transfers: ``meta``, then the packed tuples only when matches
+        exist."""
+        if isinstance(comp, BloomHits):
+            return self._decode_bloom(batch, comp)
+        total, reported = (int(x) for x in comp.meta.cpu())
+        events = []
+        if reported:
+            # fetch a power-of-two bucket >= reported: the transfer stays
+            # proportional to the matches
+            bucket = 256
+            while bucket < reported:
+                bucket *= 2
+            lane, pos, _state, gid, _rep = (
+                comp.packed[:, : min(bucket, comp.packed.shape[1])]
+                .cpu().numpy()[:, :reported].tolist()
+            )
+            groups = self._groups
+            for ln, p, g in zip(lane, pos, gid):
+                pids = groups[g]
+                events.append(
+                    MatchEvent(
+                        file_id=int(batch.file_ids[ln]),
+                        end_offset=int(batch.base_off[ln]) + p,
+                        pattern_indices=pids,
+                        rep_index=pids[0],
+                        lane=ln,
+                        gid=g,
+                    )
+                )
+            if self.sort:
+                # canonical order (MATCHING.md "--sort semantics"), the
+                # same key as the bloom engine's
+                events.sort(key=lambda ev: (ev.file_id, ev.end_offset))
+        return BatchMatches(
+            events=events,
+            total=total,
+            reported=reported,
+            overflowed=total > reported,
+        )
 
     def _candidate_rows(self, comp: BloomHits):
         """(rows, lanes) of candidate grams from the survivor bitmap."""
@@ -255,10 +355,39 @@ class MatchSession:
             batch.data, lanes, rows, batch.halo, batch.start_t, batch.end_t
         )
 
+    def _device_verify(self, comp: BloomHits, total: int):
+        """Run the device verify stage: (meta, packed, gcounts) host
+        arrays, or None when the batch exceeds the device cap (the caller
+        verifies it on the host; counted in device_verify_fallbacks)."""
+        from tpu_pattern_matching.utils.debug import dprint
+        from tpu_pattern_matching_torch.ops.verify_device import (
+            CapacityExceeded,
+        )
+
+        try:
+            return self._dvf.verify(comp.data, comp.bounds, comp.bits, total)
+        except CapacityExceeded as e:
+            self.device_verify_fallbacks += 1
+            dprint(1, "device verify fell back to host: %s", e)
+            return None
+
     def _decode_bloom(self, batch: HostBatch, comp: BloomHits) -> BatchMatches:
         """Exact events of one batch: total, then (if not zero) the
-        bitmap, then the native window walker over the candidates."""
+        device verify stage's events, or the bitmap and the native window
+        walker over its candidates."""
         total = self._batch_total(comp)
+        if total and self._dvf is not None:
+            out = self._device_verify(comp, total)
+            if out is not None:
+                meta, (ln_a, e_a, st_a), _gc = out
+                gid_a = self.table.state_gid[st_a]
+                events = self._events_from_arrays(batch, ln_a, e_a, gid_a)
+                return BatchMatches(
+                    events=events,
+                    total=int(meta[0]),
+                    reported=len(events),
+                    overflowed=False,
+                )
         rows, lanes, arr = self._verify(batch, comp, total)
         events = []
         if arr is not None:
@@ -294,16 +423,26 @@ class MatchSession:
         )
 
     def decode_counts(
-        self, batch: HostBatch, comp: BloomHits
+        self, batch: HostBatch, comp
     ) -> tuple[int, np.ndarray]:
         """(total_events, per-group counts [G]) without materializing
-        per-event objects: a bincount over the walker's verified rows.
-        Like ``decode``, it grows ``k_ref`` on a refinement overflow (the
+        per-event objects. Dense: the in-walk gcounts, exact past slot
+        overflow. Device verify: the gcounts of the verify stage. Host
+        verify: a bincount over the walker's verified rows; like
+        ``decode``, it grows ``k_ref`` on a refinement overflow (the
         reference grows it in ``decode`` only)."""
         G = self.table.num_groups
+        if isinstance(comp, CompactMatches):
+            return int(comp.meta[0]), per_group_counts(
+                self.dev, comp).cpu().numpy().astype(np.int64)
         total = self._batch_total(comp)
         if not total:
             return 0, np.zeros(G, np.int64)
+        if self._dvf is not None:
+            out = self._device_verify(comp, total)
+            if out is not None:
+                meta, _packed, gc = out
+                return int(meta[0]), gc.astype(np.int64)
         _rows, _lanes, arr = self._verify(batch, comp, total)
         if arr is None:
             bm = self._decode_bloom(batch, comp)
@@ -311,6 +450,17 @@ class MatchSession:
         ln_a, _e_a, st_a = arr
         gid_a = self.table.state_gid[st_a]
         return len(ln_a), np.bincount(gid_a, minlength=G).astype(np.int64)
+
+    def group_counts(self, comp: CompactMatches) -> np.ndarray:
+        """Device-side per-group counts (dense engine); bloom sessions
+        count verified events instead — use decode_counts or
+        event_group_counts."""
+        if self.dev is None:
+            raise ValueError(
+                "group_counts needs the dense engine; bloom sessions "
+                "count via decode_counts/event_group_counts"
+            )
+        return per_group_counts(self.dev, comp).cpu().numpy()
 
     def event_group_counts(self, bm: BatchMatches) -> np.ndarray:
         """Per-group event counts [G] from decoded events."""
@@ -337,7 +487,7 @@ class MatchSession:
         depth = max(1, depth)
         bufs = [self.new_buffer()]
         cur = 0
-        pending: deque[tuple[HostBatch, BloomHits]] = deque()
+        pending: deque[tuple[HostBatch, object]] = deque()
         stream = StreamState(file_id=file_id)
         while True:
             buf = bufs[cur]
@@ -366,10 +516,21 @@ class MatchSession:
         self, data: bytes, text_mode: bool = False
     ) -> list[tuple[int, int]]:
         """All (end_offset, pattern_index) events in ``data``, sorted —
-        the simplest library entry point; equal to the CPU oracle's. The
-        bloom engine has no result-slot cap, so nothing can overflow."""
+        the simplest library entry point; equal to the CPU oracle's.
+
+        Raises if the dense engine's per-lane result slots overflow (raise
+        ``max_results`` or use the bloom engine, which has no slot cap):
+        a partial answer would be silent loss. ``scan_stream`` consumers
+        read ``BatchMatches.overflowed`` themselves."""
         out: list[tuple[int, int]] = []
         for bm in self.scan_stream(io.BytesIO(data), text_mode=text_mode):
+            if bm.overflowed:
+                raise RuntimeError(
+                    f"result slots overflowed ({bm.total - bm.reported} "
+                    f"events dropped in one batch): raise max_results "
+                    f"(currently {self.max_results}) or use the bloom "
+                    f"engine (no capacity cap)"
+                )
             for ev in bm.events:
                 out.extend(ev.expand())
         return sorted(out)
