@@ -9,12 +9,13 @@ Phases (any failure exits non-zero at once):
               ``tpu_pattern_matching_torch/csrc/`` with nvcc for sm_90a, one
               nvcc each, both at once;
 2. kernels  — each kernel against its plain PyTorch version on the card,
-              bit for bit, with CUDA-event times of both: the sampled and
-              strided probes on ragged random batches at the bench shape
-              [4096 lanes, 4112], the packed strided probe (K3) on the same
-              batch, the window walk (device verify) on seeded candidate
-              sets and the dense lane walk on seeded lanes, at an int32
-              (10k patterns) and an int16 (3 patterns) table;
+              bit for bit, with the CUDA-event and host times per call of
+              the kernel and the CUDA-event time of the plain version: the
+              sampled and strided probes on ragged random batches at the
+              bench shape [4096 lanes, 4112], the packed strided probe
+              (K3) on the same batch, and the dense lane walk on seeded
+              lanes at an int32 (10k patterns) and an int16 (3 patterns)
+              table;
 3. slice    — ``MatchSession(device="cuda")``, the default path: the bench
               workload (10,000 random 12-byte signatures, seed 42) over 64
               MiB of seeded random bytes with planted matches at 1e-3
@@ -25,11 +26,16 @@ Phases (any failure exits non-zero at once):
               prep + probe of each (A, B, B, A);
 5. verify   — ``MatchSession(verify="device")`` on the same two
               workloads: events equal the oracle's, ``decode_counts``
-              equals the oracle's per-group count of distinct match ends,
-              no batch fell back to the host;
+              equals the oracle's per-group count of distinct match ends;
+              the inputs of the window walk's largest launch of each
+              workload are kept, and after the phase the kernel is checked
+              against its plain version on them and timed, as in phase 2;
 6. dense    — ``MatchSession(engine="dense")`` on the same two workloads:
               events equal the oracle's, no result slot overflowed;
-7. no jax   — the port never imported jax.
+7. trace    — torch.profiler traces: each kernel's device time per launch
+              (the summary's ``ms``), and the device time of the packed
+              A/B's prep + probe per call;
+8. no jax   — the port never imported jax.
 
 Each of phases 3-6 sets every launch count to 0 before its path and reads
 them after it; each fails unless the kernels of its path were launched.
@@ -40,10 +46,10 @@ printing no result, when there is no CUDA device.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -57,18 +63,21 @@ HALO = 16  # pad_halo(11, 4096): the bench batch is [4096, 4112]
 STREAM_BYTES = 64 << 20
 DENSITY = 1e-3
 DEVICE = "cuda"
+AB = (False, True, True, False)  # packed A/B order: byte, packed, packed, byte
 PROBE_SRC = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
 WALK_SRC = "tpu_pattern_matching_torch/csrc/dfa_walk.cu"
-KERNELS = {  # launch-count key: (summary name, source, TPU kernel replaced)
-    "sampled": ("bloom_probe_sampled", PROBE_SRC,
+KERNELS = {  # launch-count key: (summary name, __global__ function,
+    #                               source, TPU kernel replaced)
+    "sampled": ("bloom_probe_sampled", "probe_sampled_kernel", PROBE_SRC,
                 "tpu_pattern_matching/ops/bloom.py:833"),
-    "strided": ("bloom_probe_strided", PROBE_SRC,
+    "strided": ("bloom_probe_strided", "probe_strided_kernel", PROBE_SRC,
                 "tpu_pattern_matching/ops/bloom.py:687"),
-    "strided_packed": ("bloom_probe_strided_packed", PROBE_SRC,
+    "strided_packed": ("bloom_probe_strided_packed",
+                       "probe_strided_packed_kernel", PROBE_SRC,
                        "tpu_pattern_matching/ops/bloom.py:730"),
-    "window_walk": ("dfa_window_walk", WALK_SRC,
+    "window_walk": ("dfa_window_walk", "window_walk_kernel", WALK_SRC,
                     "tpu_pattern_matching/ops/verify_device.py:260"),
-    "dense_walk": ("dfa_dense_walk", WALK_SRC,
+    "dense_walk": ("dfa_dense_walk", "dense_walk_kernel", WALK_SRC,
                    "tpu_pattern_matching/ops/match_xla.py:69"),
 }
 
@@ -99,6 +108,74 @@ def cuda_ms(torch, fn, n: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def host_ms(torch, fn, n: int) -> float:
+    """Host ms per call over n calls without a sync: the launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs * 1e3 / n
+
+
+def timed(torch, fn, plain, n: int, n_plain: int, err: int,
+          card_line: str) -> tuple[dict, str]:
+    """The CUDA-event and host times per call of a kernel and the
+    CUDA-event time of its plain version, for the summary and a print
+    line; ``fn`` is kept for the trace phase, which adds the device
+    time."""
+    t = dict(event_ms=cuda_ms(torch, fn, n), host_ms=host_ms(torch, fn, n),
+             plain_ms=cuda_ms(torch, plain, n_plain), max_abs_err=err,
+             fn=fn)
+    return t, (f"; kernel {t['event_ms']:.4f} ms per call by CUDA events "
+               f"over {n} calls, {t['host_ms']:.4f} ms host per call; plain "
+               f"{t['plain_ms']:.4f} ms ({card_line})")
+
+
+def trace_ms(torch, fn, fn_name=None, n: int = 100) -> tuple[float, int]:
+    """From a torch.profiler trace of n calls of ``fn``: (device ms per
+    launch of the kernel ``fn_name``, launches traced), or with no
+    ``fn_name`` (device ms per call of all its device work, device
+    events traced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and (fn_name is None or fn_name in e.key)]
+    count = sum(e.count for e in rows)
+    if not count:
+        fail(f"[trace] no device work of {fn_name or fn} in {n} calls")
+    us = sum(e.device_time_total for e in rows)
+    return us / 1e3 / (count if fn_name else n), count
+
+
+def phase_trace(torch, times, ab_fns, card_line: str) -> None:
+    """Device times from torch.profiler traces: each kernel's per launch,
+    and the packed A/B's per call (every kernel of prep + probe). Runs
+    last, so that the profiler's set-up and hooks cannot touch the
+    host-bound times taken before it."""
+    for key, t in times.items():
+        t["ms"], count = trace_ms(torch, t.pop("fn"), KERNELS[key][1])
+        print(f"[trace] {key:14s} {t['ms']:.4f} ms device time per launch "
+              f"({count} launches traced of 100 calls); {t['event_ms']:.4f} "
+              f"ms per call by CUDA events, {t['host_ms']:.4f} ms host per "
+              f"call ({card_line})", flush=True)
+    ab = [trace_ms(torch, ab_fns[packed])[0] for packed in AB]
+    print(f"[trace] packed A/B, device time of prep + probe per call: byte "
+          f"path {ab[0]:.4f}, {ab[3]:.4f} ms, packed path {ab[1]:.4f}, "
+          f"{ab[2]:.4f} ms (A, B, B, A); packed/byte "
+          f"{(ab[1] + ab[2]) / (ab[0] + ab[3]):.4f} ({card_line})", flush=True)
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -139,31 +216,12 @@ def phase_build(kernels, card_line: str) -> None:
             fail(f"{name} was not built by this run")
         cmd = " ".join(os.path.relpath(c, HERE) if c.startswith(HERE)
                        else os.path.basename(c) for c in b["command"])
+        ptxas = [ln.split(":", 1)[-1].strip() for ln in b["log"].splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
         print(f"[build] {cmd}: {b['seconds']:.2f} s on {card_line}; ptxas: "
-              f"{'; '.join(ptxas_summary(b['log']))}", flush=True)
+              f"{' | '.join(ptxas)}", flush=True)
     print(f"[build] both libraries in {secs:.2f} s (parallel)", flush=True)
-
-
-def ptxas_summary(log: str) -> list:
-    """'kernel<T>: N registers, S B stack, spills' per compiled kernel."""
-    out, name = [], "?"
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:I(Li(\d+)|[is])E)?",
-                          m.group(1))
-            name = k.group(1) if k else m.group(1)
-            if k and k.group(2):
-                arg = k.group(3) or {"i": "int32", "s": "int16"}[k.group(2)]
-                name += f"<{arg}>"
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
-        if m:
-            stack, spill = m.groups()
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out.append(f"{name}: {m.group(1)} registers, {stack} B stack, "
-                       f"{spill} B spilled")
-    return out
 
 
 def random_cfg(bloom, mode, q, sw, k, v, fold, seed):
@@ -212,8 +270,7 @@ def phase_probes(torch, bloom, kernels, card_line: str) -> dict:
         ("packed s8 nocase k>8", "strided", 4, 8, 10, 4, True, True),
         ("packed s12 q6 v=256", "strided", 6, 12, 6, 256, False, True),
     ]
-    timed = {"bench pick": "sampled", "strided": "strided",
-             "packed s4": "strided_packed"}
+    timed_modes = ("bench pick", "strided", "packed s4")
     times = {}
     for i, (label, mode, q, sw, k, v, fold, packed) in enumerate(configs):
         cfg = random_cfg(bloom, mode, q, sw, k, v, fold, seed=i)
@@ -238,15 +295,15 @@ def phase_probes(torch, bloom, kernels, card_line: str) -> dict:
                 f"{' fold' if fold else ''} {data_tm.dtype} "
                 f"[{data_tm.shape[0]}, {Cp}]: bits and total equal, "
                 f"tolerance 0 ({int(kt[0])} survivors)")
-        if label in timed:
-            ms = cuda_ms(torch, lambda: kernels.launch_probe(
-                data_tm, bp, words, cfg), 20)
-            plain_ms = cuda_ms(torch, lambda: bloom.probe_bits_plain(
-                data_tm, bp, words, cfg), 3)
-            times[timed[label]] = dict(ms=ms, plain_ms=plain_ms,
-                                       max_abs_err=err)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"({card_line})")
+        if label in timed_modes:
+            times[kind], text = timed(
+                torch,
+                functools.partial(kernels.launch_probe, data_tm, bp, words,
+                                  cfg),
+                functools.partial(bloom.probe_bits_plain, data_tm, bp, words,
+                                  cfg),
+                50, 3, err, card_line)
+            line += text
         print(line, flush=True)
     return times
 
@@ -277,10 +334,10 @@ def planted_batch(torch, pats, seed):
             torch.from_numpy(np.stack([start, end])).to(dev))
 
 
-def phase_walks(torch, kernels, workloads, card_line: str) -> dict:
-    """W2 (window walk) and W1 (dense walk) against their plain versions
-    on the card, bit for bit, at the int32 and the int16 table."""
-    from tpu_pattern_matching_torch.ops import match_xla, verify_device
+def phase_dense_walk(torch, kernels, workloads, card_line: str) -> dict:
+    """W1 (dense walk) against its plain version on the card, bit for
+    bit, at the int32 and the int16 table."""
+    from tpu_pattern_matching_torch.ops import match_xla
     from tpu_pattern_matching_torch.ops.table import DeviceTable
 
     dev = torch.device(DEVICE)
@@ -290,47 +347,6 @@ def phase_walks(torch, kernels, workloads, card_line: str) -> dict:
         dt = DeviceTable.put(table, dev)
         data, bounds = planted_batch(torch, pats, seed=len(pats))
         C, T = data.shape
-        q = 4
-        lmax = table.max_pat_len
-        # candidates: ~15k distinct random (lane, row) pairs in (lane, row)
-        # order, several per lane, in 16384 slots whose tail is sentinels
-        # (lane C, row INT32_MAX), as the compaction leaves them
-        rng = np.random.RandomState(7)
-        kw_slots = 16384
-        keys = np.unique(rng.randint(0, C, size=kw_slots - 1000) * T
-                         + rng.randint(0, T - q, size=kw_slots - 1000))
-        n = len(keys)
-        lane = np.full(kw_slots, C, np.int32)
-        row = np.full(kw_slots, 0x7FFFFFFF, np.int32)
-        lane[:n] = keys // T
-        row[:n] = keys % T
-        args = (dt.table_flat, data.reshape(-1), bounds,
-                torch.from_numpy(lane).to(dev), torch.from_numpy(row).to(dev),
-                torch.tensor([n], dtype=torch.int64, device=dev))
-        kw = dict(C=C, T=T, alphabet_size=256, q=q, lmax=lmax, halo=HALO)
-        steps = verify_device.walk_steps(lmax, q)
-        got = kernels.launch_window_walk(*args, **kw, steps=steps)
-        torch.cuda.synchronize()
-        want = verify_device.window_walk_plain(*args, **kw, steps=steps)
-        err = max_abs_err(torch, got, want)
-        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
-            fail(f"[kernels] window walk, {w['label']}: kernel differs from "
-                 f"plain (max_abs_err {err})")
-        line = (f"[kernels] window_walk    {w['label']:22s} "
-                f"{dt.table_flat.dtype} table, {kw_slots} slots ({n} live) x "
-                f"{steps} steps over [{C}, {T}]: rep and state equal, "
-                f"tolerance 0 ({int(want[0].sum())} reports)")
-        if w["label"] == "bench workload":
-            ms = cuda_ms(torch, lambda: kernels.launch_window_walk(
-                *args, **kw, steps=steps), 20)
-            plain_ms = cuda_ms(torch, lambda: verify_device.window_walk_plain(
-                *args, **kw, steps=steps), 3)
-            times["window_walk"] = dict(ms=ms, plain_ms=plain_ms,
-                                        max_abs_err=err)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"({card_line})")
-        print(line, flush=True)
-
         data_tm = data.t().contiguous()
         dkw = dict(alphabet_size=256, halo=HALO, max_results=16,
                    state_gid=dt.state_gid, num_groups=dt.num_groups)
@@ -348,14 +364,14 @@ def phase_walks(torch, kernels, workloads, card_line: str) -> dict:
                 f"({int(want[0].sum())} reports, max {int(want[0].max())} "
                 f"in a lane)")
         if w["label"] == "bench workload":
-            ms = cuda_ms(torch, lambda: kernels.launch_dense_walk(
-                dt.table_flat, data_tm, bounds, **dkw), 10)
-            plain_ms = cuda_ms(torch, lambda: match_xla.dense_walk_plain(
-                dt.table_flat, data_tm, bounds, **dkw), 1)
-            times["dense_walk"] = dict(ms=ms, plain_ms=plain_ms,
-                                       max_abs_err=err)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"({card_line})")
+            times["dense_walk"], text = timed(
+                torch,
+                functools.partial(kernels.launch_dense_walk, dt.table_flat,
+                                  data_tm, bounds, **dkw),
+                functools.partial(match_xla.dense_walk_plain, dt.table_flat,
+                                  data_tm, bounds, **dkw),
+                10, 1, err, card_line)
+            line += text
         print(line, flush=True)
     return times
 
@@ -462,19 +478,18 @@ def phase_packed(torch, bloom, kernels, card_line) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     if not torch.equal(b_pk, b_by) or int(t_pk[0]) != int(t_by[0]):
         fail("[packed] hits(packed=True) and hits(packed=False) differ")
-    ab = []
-    for packed in (False, True, True, False):
-        ab.append(cuda_ms(torch, lambda: bloom.hits(
-            data, bounds, words, cfg, packed=packed), 20))
-    byte_ms = (ab[0] + ab[3]) / 2
-    packed_ms = (ab[1] + ab[2]) / 2
+    fns = {packed: functools.partial(bloom.hits, data, bounds, words, cfg,
+                                     packed=packed)
+           for packed in (False, True)}
+    ab = [cuda_ms(torch, fns[packed], 20) for packed in AB]
     print(f"[packed] {cfg_name(cfg)} at [{data.shape[0]}, {data.shape[1]}]: "
           f"bitmaps and totals equal ({int(t_pk[0])} survivors); prep + "
-          f"probe per batch: byte path {ab[0]:.4f}, {ab[3]:.4f} ms, packed "
-          f"path {ab[1]:.4f}, {ab[2]:.4f} ms (A, B, B, A; {card_line}); "
-          f"packed/byte {packed_ms / byte_ms:.4f}; PACKED_AUTO stays "
+          f"probe per call by CUDA events: byte path {ab[0]:.4f}, "
+          f"{ab[3]:.4f} ms, packed path {ab[1]:.4f}, {ab[2]:.4f} ms (A, B, "
+          f"B, A; {card_line}); packed/byte "
+          f"{(ab[1] + ab[2]) / (ab[0] + ab[3]):.4f}; PACKED_AUTO stays "
           f"{bloom.PACKED_AUTO}", flush=True)
-    return launches, dict(byte_ms=byte_ms, packed_ms=packed_ms)
+    return launches, fns
 
 
 def oracle_group_counts(sess, want) -> tuple[int, np.ndarray]:
@@ -507,42 +522,91 @@ def stream_counts(sess, data: bytes):
             return total, gc
 
 
-def phase_verify(torch, kernels, MatchSession, workloads, card_line) -> dict:
-    """verify="device" on both workloads."""
+def phase_verify(torch, kernels, MatchSession, workloads, card_line):
+    """verify="device" on both workloads. Returns the launch counts and,
+    per workload, the inputs of the window walk's largest launch (most
+    slots; the first of equals)."""
     from tpu_pattern_matching_torch.ops.verify_device import MAX_DEVICE_CAND
 
+    walks = {}
+    launch = kernels.launch_window_walk
+
+    def keep_largest(*args, **kw):
+        lane = args[3]
+        if label not in walks or lane.shape[0] > walks[label][0][3].shape[0]:
+            walks[label] = (args, kw)  # fresh tensors, never reused
+        return launch(*args, **kw)
+
     reset(kernels)
-    for w in workloads:
-        sess = session(MatchSession, w, verify="device")
-        totals = []
-        orig = sess._dvf.verify
+    kernels.launch_window_walk = keep_largest
+    try:
+        for w in workloads:
+            label = w["label"]
+            sess = session(MatchSession, w, verify="device")
+            totals = []
+            orig = sess._dvf.verify
 
-        def spy(data, bounds, bits, total, orig=orig, totals=totals):
-            totals.append(total)
-            return orig(data, bounds, bits, total)
+            def spy(data, bounds, bits, total, orig=orig, totals=totals):
+                totals.append(total)
+                return orig(data, bounds, bits, total)
 
-        sess._dvf.verify = spy
-        rate = timed_find(torch, sess, w, "verify")
-        n_ev, gc = stream_counts(sess, w["data"])
-        o_ev, o_gc = oracle_group_counts(sess, w["want"])
-        if n_ev != o_ev or not np.array_equal(gc, o_gc):
-            fail(f"[verify] {w['label']}: decode_counts {n_ev} events, "
-                 f"oracle {o_ev} distinct ends (per-group equal: "
-                 f"{np.array_equal(gc, o_gc)})")
-        if sess.device_verify_fallbacks:
-            fail(f"[verify] {w['label']}: {sess.device_verify_fallbacks} "
-                 f"batches fell back to host verify (largest probe total "
-                 f"{max(totals)}, cap {MAX_DEVICE_CAND})")
-        print(f"[verify] {w['label']}: {cfg_name(sess.bloom_table.cfg)}, "
-              f"find over {len(w['data'])} B -> {len(w['want'])} events == "
-              f"native oracle; decode_counts {n_ev} events == oracle's "
-              f"distinct ends, per group equal; largest unrefined probe "
-              f"total per batch {max(totals)} of cap {MAX_DEVICE_CAND} at "
-              f"{BATCH_LANES} lanes; fallbacks 0; sticky k_walk "
-              f"{sess._dvf._k_walk}; {rate:.6g} B/s end to end (smoke "
-              f"number, {card_line})", flush=True)
-    return read_launches(kernels, "verify",
-                         ("sampled", "strided", "window_walk"))
+            sess._dvf.verify = spy
+            rate = timed_find(torch, sess, w, "verify")
+            n_ev, gc = stream_counts(sess, w["data"])
+            o_ev, o_gc = oracle_group_counts(sess, w["want"])
+            if n_ev != o_ev or not np.array_equal(gc, o_gc):
+                fail(f"[verify] {label}: decode_counts {n_ev} events, "
+                     f"oracle {o_ev} distinct ends (per-group equal: "
+                     f"{np.array_equal(gc, o_gc)})")
+            split = sum(t > MAX_DEVICE_CAND for t in totals)
+            print(f"[verify] {label}: {cfg_name(sess.bloom_table.cfg)}, "
+                  f"find over {len(w['data'])} B -> {len(w['want'])} events "
+                  f"== native oracle; decode_counts {n_ev} events == "
+                  f"oracle's distinct ends, per group equal; largest "
+                  f"unrefined probe total per batch {max(totals)} of the "
+                  f"one-pass cap {MAX_DEVICE_CAND} at {BATCH_LANES} lanes "
+                  f"({split} batches verified in lane passes); sticky "
+                  f"k_walk {sess._dvf._k_walk}; {rate:.6g} B/s end to end "
+                  f"(smoke number, {card_line})", flush=True)
+    finally:
+        kernels.launch_window_walk = launch
+    launches = read_launches(kernels, "verify",
+                             ("sampled", "strided", "window_walk"))
+    return launches, walks
+
+
+def phase_window_walk(torch, kernels, walks, card_line) -> dict:
+    """W2 against its plain version on the inputs of the verify phase's
+    largest launch of each workload, bit for bit, timed at the bench
+    workload's."""
+    from tpu_pattern_matching_torch.ops import verify_device
+
+    times = {}
+    for label, (args, kw) in walks.items():
+        got = kernels.launch_window_walk(*args, **kw)
+        torch.cuda.synchronize()
+        want = verify_device.window_walk_plain(*args, **kw)
+        err = max_abs_err(torch, got, want)
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"[kernels] window walk, {label}: kernel differs from "
+                 f"plain (max_abs_err {err})")
+        line = (f"[kernels] window_walk    {label:22s} {args[0].dtype} "
+                f"table, the verify phase's largest launch: "
+                f"{args[3].shape[0]} slots ({int(args[5][0])} live) x "
+                f"{kw['steps']} steps over [{kw['C']}, {kw['T']}]: rep and "
+                f"state equal, tolerance 0 ({int(want[0].sum())} reports)")
+        if label == "bench workload":
+            times["window_walk"], text = timed(
+                torch,
+                functools.partial(kernels.launch_window_walk, *args, **kw),
+                functools.partial(verify_device.window_walk_plain, *args,
+                                  **kw),
+                500, 5, err, card_line)
+            line += text
+        print(line, flush=True)
+    if "window_walk" not in times:
+        fail(f"[kernels] no window walk of the bench workload ({list(walks)})")
+    return times
 
 
 def phase_dense(torch, kernels, MatchSession, workloads, card_line) -> dict:
@@ -575,15 +639,18 @@ def main() -> None:
     phase_build(kernels, card_line)
     times = phase_probes(torch, bloom, kernels, card_line)
     workloads = make_workloads()
-    times.update(phase_walks(torch, kernels, workloads, card_line))
+    times.update(phase_dense_walk(torch, kernels, workloads, card_line))
     launches = phase_slice(torch, kernels, MatchSession, workloads,
                            card_line)
-    packed_launches, _ab = phase_packed(torch, bloom, kernels, card_line)
+    packed_launches, ab_fns = phase_packed(torch, bloom, kernels, card_line)
     launches["strided_packed"] = packed_launches["strided_packed"]
-    launches["window_walk"] = phase_verify(
-        torch, kernels, MatchSession, workloads, card_line)["window_walk"]
+    verify_launches, walks = phase_verify(torch, kernels, MatchSession,
+                                          workloads, card_line)
+    launches["window_walk"] = verify_launches["window_walk"]
+    times.update(phase_window_walk(torch, kernels, walks, card_line))
     launches["dense_walk"] = phase_dense(
         torch, kernels, MatchSession, workloads, card_line)["dense_walk"]
+    phase_trace(torch, times, ab_fns, card_line)
     if "jax" in sys.modules:
         fail("jax was imported")
     print("[no jax] 'jax' not in sys.modules", flush=True)
@@ -592,7 +659,7 @@ def main() -> None:
          "launches": launches[key],
          "max_abs_err": times[key]["max_abs_err"], "ms": times[key]["ms"],
          "plain_ms": times[key]["plain_ms"]}
-        for key, (name, src, rep) in KERNELS.items()
+        for key, (name, _fn, src, rep) in KERNELS.items()
     ]}
     print(card_line)
     print(json.dumps(summary))

@@ -213,3 +213,33 @@ def test_device_verify_and_dense_sessions_equal_oracle(cuda):
                             device=cuda, **kw)
         assert sess.find(data) == want
     assert sess.dev.table_flat.is_cuda
+
+
+def test_device_verify_lane_passes_on_cuda(cuda, monkeypatch):
+    # a one-pass cap below every batch's candidates: each batch is
+    # verified in passes over lane ranges, on the card, with exact events
+    from tpu_pattern_matching_torch.ops import verify_device
+
+    rng = np.random.RandomState(9)
+    pats = [bytes(rng.randint(0, 256, size=10).astype(np.uint8))
+            for _ in range(50)]
+    data = bytearray(rng.randint(0, 256, size=1 << 18).astype(np.uint8))
+    for i, pos in enumerate(rng.randint(0, (1 << 18) - 10, size=400)):
+        data[pos : pos + 10] = pats[i % len(pats)]
+    data = bytes(data)
+    off, pid, _total = NativeOracle(pats).match(data, cap=1 << 16)
+    sess = MatchSession(compile_patterns(pats), max_chunks=128,
+                        chunk_len=1024, device=cuda, verify="device")
+    passes = []
+    orig = sess._dvf._verify_pass
+
+    def spy(data, bounds, bits, total):
+        passes.append(total)
+        return orig(data, bounds, bits, total)
+
+    sess._dvf._verify_pass = spy
+    monkeypatch.setattr(verify_device, "MAX_DEVICE_CAND", 64)
+    before = kernels.launches["window_walk"]
+    assert sess.find(data) == sorted(zip(off.tolist(), pid.tolist()))
+    assert len(passes) > 2 * 2 and max(passes) <= 64  # 2 batches, split
+    assert kernels.launches["window_walk"] >= before + len(passes)

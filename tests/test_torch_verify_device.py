@@ -160,7 +160,7 @@ def test_device_verify_basic_equals_reference_and_oracle():
     assert port.verify_mode == "device" and port._bloom.exact is None
     got = port.find(data)
     assert got == oracle(pats, data) == ref.find(data)
-    assert port.device_verify_fallbacks == 0
+    assert port._verifier is None  # no host walker to fall back to
 
 
 def test_device_verify_sampled_mode():
@@ -222,16 +222,61 @@ def test_device_verify_match_dense_counts_and_event_retry():
     assert total == r_total and gc.tolist() == r_gc.tolist()
 
 
-def test_device_verify_cap_falls_back_to_host(monkeypatch):
-    monkeypatch.setattr(port_vd, "MAX_DEVICE_CAND", 2)
+def test_device_verify_past_the_cap_runs_in_lane_passes(monkeypatch):
+    # a cap below the batch's candidates: the session verifies each batch
+    # in several passes over lane ranges, all on the device
+    monkeypatch.setattr(port_vd, "MAX_DEVICE_CAND", 40)
     pats = [b"he", b"she"]
     data = b"ushers she he " * 40
-    port = MatchSession(compile_patterns(pats), max_chunks=8, chunk_len=64,
-                        device="cpu", verify="device")
-    assert port.find(data) == oracle(pats, data)
-    assert port.device_verify_fallbacks >= 1
-    total, gc = batch_counts(port, data)  # the count path falls back too
-    assert total == gc.sum() == len({e for e, _ in oracle(pats, data)})
+    ref, port = both(pats, max_chunks=8, chunk_len=64)
+    totals = []
+    orig = port._dvf._verify_pass
+
+    def spy(data, bounds, bits, total):
+        totals.append(total)
+        return orig(data, bounds, bits, total)
+
+    port._dvf._verify_pass = spy
+    want = oracle(pats, data)
+    assert port.find(data) == want == ref.find(data)
+    assert len(totals) > 1 and max(totals) <= 40
+    total, gc = batch_counts(port, data)  # the count path splits too
+    r_total, r_gc = batch_counts(ref, data)
+    assert total == gc.sum() == len({e for e, _ in want}) == r_total
+    assert gc.tolist() == r_gc.tolist()
+
+
+@pytest.mark.parametrize("name", ["int16-refined", "int32-unrefined"])
+@pytest.mark.parametrize("cap_of", ["widest lane", "half the batch"])
+def test_lane_passes_equal_one_pass(monkeypatch, name, cap_of):
+    seed, dtype, exact, _k_ev, _k_walk, force = VERIFY_CASES[name]
+    table, bft, data, bounds, bits, halo = verify_case(seed, dtype,
+                                                       force=force)
+    dvf = port_vd.DeviceVerifier(table, bft.cfg, halo, CPU,
+                                 gram_keys=bft.gram_keys if exact else None)
+    # a row whose gram runs past the lane's end (the probe never marks
+    # one) reads the next lane's bytes in the refinement: keep the rows
+    # the probe could mark, so that lane ranges see what the batch sees
+    W, Cb = bits.shape
+    fits = (np.arange(W * 32).reshape(W, 32) * bft.cfg.stride + bft.cfg.q
+            <= data.shape[1])
+    mask = (fits.astype(np.int64) << np.arange(32)).sum(1)
+    bits = bits & mask.astype(np.uint32).view(np.int32)[:, None]
+    args = (torch.from_numpy(data), torch.from_numpy(bounds),
+            torch.from_numpy(bits))
+    per_lane = np.unpackbits(bits.view(np.uint8).reshape(W, Cb, 4),
+                             axis=2).sum((0, 2))
+    total = int(per_lane.sum())
+    one = dvf.verify(*args, total)
+    cap = int(per_lane.max()) if cap_of == "widest lane" else total // 2
+    passes = port_vd.lane_passes(args[2], cap)
+    assert len(passes) > 1 and sum(n for *_, n in passes) == total
+    assert all(n <= cap for *_, n in passes)
+    monkeypatch.setattr(port_vd, "MAX_DEVICE_CAND", cap)
+    split = dvf.verify(*args, total)
+    for a, b in zip(split, one):
+        np.testing.assert_array_equal(a, b)
+    assert one[0][0] > 0  # events were compared
 
 
 def test_device_verify_nocase_equals_reference():
@@ -302,12 +347,19 @@ def test_refinement_retry_on_small_sticky_bucket():
     assert sess._dvf._k_walk >= 1000  # the sticky bucket adapted
 
 
-def test_device_verify_capacity_error_is_specific():
-    # the session falls back to the host only on the capacity error
-    assert issubclass(port_vd.CapacityExceeded, RuntimeError)
+def test_device_verify_capacity_error_is_specific(monkeypatch):
+    # past the cap the batch splits by lanes; only a single lane that
+    # holds more candidates than the cap cannot split, and raises
     table = compile_patterns([b"abcd"])
     cfg = port_bloom.BloomFilterTable.from_table(table).cfg
     dvf = port_vd.DeviceVerifier(table, cfg, 4, CPU)
-    with pytest.raises(port_vd.CapacityExceeded, match="cap"):
-        dvf.verify(None, None, None, port_vd.MAX_DEVICE_CAND + 1)
     assert dvf.table_flat.dtype == torch.int16  # kept as compiled
+    monkeypatch.setattr(port_vd, "MAX_DEVICE_CAND", 5)
+    bits = torch.zeros((2, 128), dtype=torch.int32)
+    bits[0, 3] = 0b1111  # lanes 0-2: nothing; lane 3: 4 candidates
+    bits[1, 7] = -1  # lane 7: 32 candidates
+    with pytest.raises(RuntimeError, match="lane 7 alone holds 32 "
+                                           "candidates, over the "
+                                           "device-verify cap 5"):
+        dvf.verify(torch.zeros((128, 64 * 32), dtype=torch.uint8),
+                   torch.zeros((2, 128), dtype=torch.int32), bits, 36)

@@ -15,7 +15,7 @@ kernel, bound with ``ctypes``:
 
 Each library is compiled with its own ``nvcc`` at first use into
 ``_build/`` (listed in ``.gitignore``) and rebuilt when a source is newer;
-``build_all`` starts both compiles at once. ``*_host.cpp`` runs the same
+``build_all`` runs both compiles at once. ``*_host.cpp`` runs the same
 per-thread code on the CPU (built with ``g++``) so the tests can check the
 kernels' arithmetic without a GPU.
 
@@ -32,7 +32,6 @@ import shutil
 import subprocess
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,7 +63,6 @@ launches = {"sampled": 0, "strided": 0, "strided_packed": 0,
 builds: dict = {}
 
 _LOCK = threading.Lock()
-_LIB_LOCKS: dict = {}
 _LIBS: dict = {}
 
 
@@ -91,37 +89,48 @@ def _stale(lib: str, files) -> bool:
                for f in files)
 
 
-def _compile(compiler: list, name: str, sources) -> None:
+def _compile(jobs) -> None:
+    """Compile ``[(compiler, library file, sources)]``, one process each,
+    all at once; raises after all have ended if any failed."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, name)
-    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [*compiler, "-o", tmp, *(os.path.join(CSRC_DIR, f) for f in sources)]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(
-            f"kernel build failed: {' '.join(cmd)}\n{r.stdout}{r.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
-    builds[name] = dict(
-        seconds=time.perf_counter() - t0, command=cmd,
-        log=(r.stdout + r.stderr).strip(),
-    )
+    running = []
+    for compiler, name, sources in jobs:
+        lib = os.path.join(BUILD_DIR, name)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [*compiler, "-o", tmp,
+               *(os.path.join(CSRC_DIR, f) for f in sources)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, lib, tmp, cmd, proc, t0 in running:
+        log = proc.communicate()[0].strip()
+        if proc.returncode:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
+        builds[name] = dict(seconds=time.perf_counter() - t0, command=cmd,
+                            log=log)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
 
 
-def _load(name: str, compiler, bind) -> ctypes.CDLL:
+def _load(*specs) -> list:
+    """Load ``(library file, compiler, bind)`` specs, compiling the stale
+    ones first (all at once)."""
     with _LOCK:
-        lock = _LIB_LOCKS.setdefault(name, threading.Lock())
-    with lock:  # one build per library; different libraries in parallel
-        if name not in _LIBS:
-            sources, headers = LIBRARIES[name]
-            path = os.path.join(BUILD_DIR, name)
-            if _stale(path, (*sources, *headers)):
-                _compile(compiler(), name, sources)
-            lib = ctypes.CDLL(path)
+        todo = [sp for sp in specs if sp[0] not in _LIBS]
+        stale = [(compiler(), name, LIBRARIES[name][0])
+                 for name, compiler, _bind in todo
+                 if _stale(os.path.join(BUILD_DIR, name),
+                           (*LIBRARIES[name][0], *LIBRARIES[name][1]))]
+        if stale:
+            _compile(stale)
+        for name, _compiler, bind in todo:
+            lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
             bind(lib)
             _LIBS[name] = lib
-        return _LIBS[name]
+        return [_LIBS[name] for name, *_ in specs]
 
 
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -163,33 +172,41 @@ def _gxx():
     return ["g++", *GXX_FLAGS]
 
 
+def _bind_walk_cuda(lib) -> None:
+    _bind_walk(lib, True)
+
+
+def _bind_walk_host(lib) -> None:
+    _bind_walk(lib, False)
+
+
+PROBE_CUDA = ("libtpm_probe_cuda.so", _nvcc, _bind_probe_cuda)
+WALK_CUDA = ("libtpm_walk_cuda.so", _nvcc, _bind_walk_cuda)
+
+
 def cuda_library() -> ctypes.CDLL:
     """The probe kernels' library, built on first use (needs ``nvcc``)."""
-    return _load("libtpm_probe_cuda.so", _nvcc, _bind_probe_cuda)
+    return _load(PROBE_CUDA)[0]
 
 
 def walk_library() -> ctypes.CDLL:
     """The walk kernels' library, built on first use (needs ``nvcc``)."""
-    return _load("libtpm_walk_cuda.so", _nvcc,
-                 lambda lib: _bind_walk(lib, True))
+    return _load(WALK_CUDA)[0]
 
 
 def build_all() -> None:
     """Build (or load) every CUDA library, one ``nvcc`` each, all at once."""
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(cuda_library), pool.submit(walk_library)]:
-            fut.result()
+    _load(PROBE_CUDA, WALK_CUDA)
 
 
 def host_library() -> ctypes.CDLL:
     """The probe kernels' per-thread bodies compiled for the CPU (g++)."""
-    return _load("libtpm_probe_host.so", _gxx, _bind_probe_host)
+    return _load(("libtpm_probe_host.so", _gxx, _bind_probe_host))[0]
 
 
 def walk_host_library() -> ctypes.CDLL:
     """The walk kernels' per-thread bodies compiled for the CPU (g++)."""
-    return _load("libtpm_walk_host.so", _gxx,
-                 lambda lib: _bind_walk(lib, False))
+    return _load(("libtpm_walk_host.so", _gxx, _bind_walk_host))[0]
 
 
 def _stream(dev) -> int:

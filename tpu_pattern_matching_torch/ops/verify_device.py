@@ -22,7 +22,9 @@ runs the reference's ``_verify_kernel`` stage by stage:
 
 ``DeviceVerifier`` holds the table on the device and buckets the
 capacities from the probe's exact total, retrying the refined-candidate
-and event capacities on the exact counts the pipeline reports.
+and event capacities on the exact counts the pipeline reports. A batch of
+more than ``MAX_DEVICE_CAND`` candidates is verified in several passes,
+each over a range of whole lanes, so every batch stays on the device.
 
 The reference compacts with ``lax.top_k`` because a scatter is serialized
 on XLA:TPU; on the GPU a cumsum plus one scatter into a fixed capacity is
@@ -38,7 +40,7 @@ import torch
 
 INT32_MAX = 0x7FFFFFFF
 
-MAX_DEVICE_CAND = 1 << 17  # past this, host verify is the better tool
+MAX_DEVICE_CAND = 1 << 17  # candidates of one verify pass
 
 
 def next_cap(n: int, lo: int = 256) -> int:
@@ -263,9 +265,26 @@ def verify_candidates(table_flat, state_gid, data, bounds, bits, dx=None, *,
     return meta, torch.stack([ev_lane, ev_end, ev_state]), gcounts
 
 
-class CapacityExceeded(RuntimeError):
-    """A batch holds more candidates than ``MAX_DEVICE_CAND``: the caller
-    verifies it on the host (the reference's capacity policy)."""
+def lane_passes(bits, cap: int) -> list[tuple[int, int, int]]:
+    """Split the bitmap ``[W, Cb]`` into ranges of whole lanes holding at
+    most ``cap`` candidates each: ``[(l0, l1, n_cand)]``, empty ranges
+    left out. Candidates attribute match ends only within their lane, so
+    every range verifies exactly as the whole batch would. Raises when a
+    single lane holds more than ``cap`` candidates. One host sync."""
+    bit_iota = torch.arange(32, dtype=torch.int32, device=bits.device)
+    per_lane = ((bits[:, :, None] >> bit_iota) & 1).sum((0, 2))
+    cum = np.concatenate([[0], np.cumsum(per_lane.cpu().numpy())])
+    out, l0 = [], 0
+    while l0 < len(per_lane):
+        l1 = int(np.searchsorted(cum, cum[l0] + cap, side="right")) - 1
+        if l1 <= l0:
+            raise RuntimeError(
+                f"lane {l0} alone holds {int(cum[l0 + 1] - cum[l0])} "
+                f"candidates, over the device-verify cap {cap}")
+        if cum[l1] > cum[l0]:
+            out.append((l0, l1, int(cum[l1] - cum[l0])))
+        l0 = l1
+    return out
 
 
 class DeviceVerifier:
@@ -313,14 +332,31 @@ class DeviceVerifier:
         return meta.cpu().numpy(), packed, gcounts
 
     def verify(self, data, bounds, bits, total: int):
-        """(meta, packed[:, :reported], gcounts) as host arrays. Raises
-        ``CapacityExceeded`` when ``total`` exceeds ``MAX_DEVICE_CAND``
-        (the caller verifies that batch on the host) and RuntimeError if
-        a bucketed candidate capacity still overflowed."""
-        if total > MAX_DEVICE_CAND:
-            raise CapacityExceeded(
-                f"{total} candidates exceed the device-verify cap "
-                f"{MAX_DEVICE_CAND}; use host verify for this batch")
+        """(meta, packed[:, :reported], gcounts) as host arrays. Past
+        ``MAX_DEVICE_CAND`` candidates the batch is verified in passes
+        over ranges of whole lanes (``lane_passes``) and their results
+        are joined: the same arrays as one pass. Raises RuntimeError if a
+        bucketed candidate capacity still overflowed."""
+        if total <= MAX_DEVICE_CAND:
+            return self._verify_pass(data, bounds, bits, total)
+        C = data.shape[0]
+        metas, packs, gcs = [], [], []
+        for l0, l1, n in lane_passes(bits, MAX_DEVICE_CAND):
+            meta, packed, gc = self._verify_pass(
+                data[l0:min(l1, C)], bounds[:, l0:min(l1, C)].contiguous(),
+                bits[:, l0:l1], n)
+            packed[0] += l0  # lanes of the pass -> lanes of the batch
+            metas.append(meta)
+            packs.append(packed)
+            gcs.append(gc)
+        meta = np.sum(metas, axis=0, dtype=np.int64)
+        meta[3] = np.bitwise_or.reduce([m[3] for m in metas])
+        return (meta.astype(np.int32), np.concatenate(packs, axis=1),
+                np.sum(gcs, axis=0, dtype=gcs[0].dtype))
+
+    def _verify_pass(self, data, bounds, bits, total: int):
+        """One pass of at most ``MAX_DEVICE_CAND`` candidates, with the
+        refine and event retries."""
         k_cand = next_cap(total)
         if self.exact is None:
             k_walk = k_ev = k_cand

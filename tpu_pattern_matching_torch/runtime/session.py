@@ -13,9 +13,8 @@ Three single-device pipelines, as in the reference:
   exact events.
 - ``engine="bloom"``, ``verify="device"``: the probe's candidates are
   refined, walked and compacted into exact events on the device
-  (``ops/verify_device.py``, the window-walk kernel); past
-  ``MAX_DEVICE_CAND`` candidates a batch is verified on the host, and
-  ``device_verify_fallbacks`` counts those batches.
+  (``ops/verify_device.py``, the window-walk kernel); a batch past
+  ``MAX_DEVICE_CAND`` candidates is verified there in several passes.
 - ``engine="dense"``: every lane walks the whole DFA on the device
   (``ops/match_xla.py``, the dense-walk kernel) and the per-lane result
   slots compact into match tuples (``ops/compact.py``).
@@ -116,8 +115,8 @@ class MatchSession:
         ``verify`` (bloom engine; "n/a" for dense): "host" (native window
         walker on the CPU), "device" (window walk on the device: exact
         events and per-group counts; a batch past ``MAX_DEVICE_CAND``
-        candidates is verified on the host instead and counted in
-        ``device_verify_fallbacks``), or "auto" (= host).
+        candidates is verified in passes over ranges of lanes), or
+        "auto" (= host).
         ``bloom_table``: a precompiled filter of this package
         (``BloomFilterTable.load`` or ``from_reference``) skips the
         chooser."""
@@ -162,8 +161,6 @@ class MatchSession:
         # batches whose candidates overflowed the refinement capacity
         # (their unrefined bitmap went to the host verifier)
         self.refine_overflows = 0
-        # device-verify batches past MAX_DEVICE_CAND, verified on the host
-        self.device_verify_fallbacks = 0
         self._bloom = self._verifier = self._dvf = self.dev = None
         self.bloom_table = None
         self._groups = table.groups_as_lists()
@@ -184,14 +181,6 @@ class MatchSession:
         )
         self.bloom_table = bft
         self._bloom = bft.put(self.device)
-        self._verifier = Verifier(
-            [p.symbols for p in table.patterns],
-            alphabet_size=table.alphabet_size,
-            q=bft.cfg.q,
-            max_pat_len=table.max_pat_len,
-            fold_case=bft.cfg.fold_case,
-            dense_table=table,  # fast native window walker
-        )
         if self.verify_mode == "device":
             from tpu_pattern_matching_torch.ops.verify_device import (
                 DeviceVerifier,
@@ -201,18 +190,28 @@ class MatchSession:
             # attaches no refinement of its own
             self._dvf = DeviceVerifier(table, bft.cfg, self.halo,
                                        self.device, gram_keys=bft.gram_keys)
-        elif bft.gram_keys is not None and len(bft.gram_keys):
-            # refine the survivor bitmap on the device with the exact
-            # inserted gram set, so the host walks only true gram
-            # occurrences; the capacity comes from the chooser's modeled
-            # candidate rate with REFINE_HEADROOM slack
-            batch_positions = max_chunks * (self.halo + chunk_len)
-            rate = bft.expected_cand_rate()
-            k_ref = next_cap(int(min(
-                MAX_DEVICE_CAND,
-                max(2048, REFINE_HEADROOM * rate * batch_positions),
-            )))
-            self._bloom.attach_exact(bft.gram_keys, k_ref, bits=bft.gram_bits)
+        else:
+            self._verifier = Verifier(
+                [p.symbols for p in table.patterns],
+                alphabet_size=table.alphabet_size,
+                q=bft.cfg.q,
+                max_pat_len=table.max_pat_len,
+                fold_case=bft.cfg.fold_case,
+                dense_table=table,  # fast native window walker
+            )
+            if bft.gram_keys is not None and len(bft.gram_keys):
+                # refine the survivor bitmap on the device with the exact
+                # inserted gram set, so the host walks only true gram
+                # occurrences; the capacity comes from the chooser's
+                # modeled candidate rate with REFINE_HEADROOM slack
+                batch_positions = max_chunks * (self.halo + chunk_len)
+                rate = bft.expected_cand_rate()
+                k_ref = next_cap(int(min(
+                    MAX_DEVICE_CAND,
+                    max(2048, REFINE_HEADROOM * rate * batch_positions),
+                )))
+                self._bloom.attach_exact(bft.gram_keys, k_ref,
+                                         bits=bft.gram_bits)
         dprint(1, "session: engine=bloom verify=%s chunks=%dx%d halo=%d "
                "device=%s", self.verify_mode, max_chunks, chunk_len,
                self.halo, self.device)
@@ -355,41 +354,25 @@ class MatchSession:
             batch.data, lanes, rows, batch.halo, batch.start_t, batch.end_t
         )
 
-    def _device_verify(self, comp: BloomHits, total: int):
-        """Run the device verify stage: (meta, packed, gcounts) host
-        arrays, or None when the batch exceeds the device cap (the caller
-        verifies it on the host; counted in device_verify_fallbacks)."""
-        from tpu_pattern_matching.utils.debug import dprint
-        from tpu_pattern_matching_torch.ops.verify_device import (
-            CapacityExceeded,
-        )
-
-        try:
-            return self._dvf.verify(comp.data, comp.bounds, comp.bits, total)
-        except CapacityExceeded as e:
-            self.device_verify_fallbacks += 1
-            dprint(1, "device verify fell back to host: %s", e)
-            return None
-
     def _decode_bloom(self, batch: HostBatch, comp: BloomHits) -> BatchMatches:
         """Exact events of one batch: total, then (if not zero) the
         device verify stage's events, or the bitmap and the native window
         walker over its candidates."""
         total = self._batch_total(comp)
-        if total and self._dvf is not None:
-            out = self._device_verify(comp, total)
-            if out is not None:
-                meta, (ln_a, e_a, st_a), _gc = out
+        events = []
+        if self._dvf is not None:
+            if total:
+                _meta, (ln_a, e_a, st_a), _gc = self._dvf.verify(
+                    comp.data, comp.bounds, comp.bits, total)
                 gid_a = self.table.state_gid[st_a]
                 events = self._events_from_arrays(batch, ln_a, e_a, gid_a)
-                return BatchMatches(
-                    events=events,
-                    total=int(meta[0]),
-                    reported=len(events),
-                    overflowed=False,
-                )
+            return BatchMatches(
+                events=events,
+                total=len(events),
+                reported=len(events),
+                overflowed=False,
+            )
         rows, lanes, arr = self._verify(batch, comp, total)
-        events = []
         if arr is not None:
             ln_a, e_a, st_a = arr
             gid_a = self.table.state_gid[st_a]
@@ -439,10 +422,9 @@ class MatchSession:
         if not total:
             return 0, np.zeros(G, np.int64)
         if self._dvf is not None:
-            out = self._device_verify(comp, total)
-            if out is not None:
-                meta, _packed, gc = out
-                return int(meta[0]), gc.astype(np.int64)
+            meta, _packed, gc = self._dvf.verify(comp.data, comp.bounds,
+                                                 comp.bits, total)
+            return int(meta[0]), gc.astype(np.int64)
         _rows, _lanes, arr = self._verify(batch, comp, total)
         if arr is None:
             bm = self._decode_bloom(batch, comp)
