@@ -32,27 +32,55 @@ Phases (any failure exits non-zero at once):
               against its plain version on them and timed, as in phase 2;
 6. dense    — ``MatchSession(engine="dense")`` on the same two workloads:
               events equal the oracle's, no result slot overflowed;
-7. trace    — torch.profiler traces: each kernel's device time per launch
+7. ushort   — the packet-metadata path on uint16 token lanes: 2,000
+              seeded signatures of 6-16 tokens (packet-length-like values)
+              over 64 flow files of 8 M tokens in all, planted at 1e-3 per
+              token, through the port's CLI (``main([... "--ushort", "-v",
+              ...])`` in this process) with ``--engine bloom``, ``--engine
+              bloom --verify device`` and ``--engine dense``, and through a
+              library session whose filter is forced to the sampled
+              (winnowing) mode; then the 3-signature fixture of
+              tests/test_ushort.py on each engine. The (file, offset,
+              pattern id) set of every run equals the native oracle's.
+              Before it, the uint16 builds of the probes (a sampled and a
+              strided config) and of the dense walk (the 2,000-signature
+              int16 table, and cast to int32) are checked against their
+              plain versions at the ushort CLI's batch shape [4096 lanes,
+              16 + 2048 tokens]; after it, the uint16 window walk on the
+              device-verify run's own largest launch;
+8. cli      — the byte CLI: the 10k x 12 B workload split over 16 files
+              (64 MiB, ``--load-dfa``/``--load-bloom``, ``--json-stats``):
+              totals equal the oracle's; a ``-v -t`` run of the 3-pattern
+              set: its "Pattern ..." lines equal the oracle's events;
+9. sentiment — ``apps.sentiment.run_library_mode`` on a seeded word list:
+              per-word counts equal the oracle's;
+10. trace   — torch.profiler traces: each kernel's device time per launch
               (the summary's ``ms``), and the device time of the packed
               A/B's prep + probe per call;
-8. no jax   — the port never imported jax.
+11. no jax  — the port never imported jax.
 
-Each of phases 3-6 sets every launch count to 0 before its path and reads
+Each of phases 3-9 sets every launch count to 0 before its path and reads
 them after it; each fails unless the kernels of its path were launched.
+Each of phases 7-9 prints its wall time.
 The last lines are the card's name and power limit, a JSON line with the
-per-kernel summary, and ``{"ok": true, "device": {...}}``. Exits non-zero,
+per-kernel summary (every kernel at each symbol width), and ``{"ok":
+true, "device": {...}}``. Exits non-zero,
 printing no result, when there is no CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -64,6 +92,21 @@ STREAM_BYTES = 64 << 20
 DENSITY = 1e-3
 DEVICE = "cuda"
 AB = (False, True, True, False)  # packed A/B order: byte, packed, packed, byte
+# the ushort CLI's batch at -B 4096 -G 4096: 2048 uint16 tokens a lane
+U16_LANES = 4096
+U16_TOKENS = 2048
+U16_HALO = 16  # pad_halo(15, 2048): signatures are at most 16 tokens
+U16_SIGS = 2000
+U16_FILES = 64
+U16_TOTAL = 8 << 20  # tokens in all (16 MiB of uint16 payload)
+U16_DENSITY = 1e-3  # planted tokens per token
+# the chooser's pick for 30,000 such signatures (the 2,000-signature set
+# picks strided q3 s4 k6 v8): the forced filter of the sampled ushort run
+SAMPLED_U16 = ("sampled", 3, 4, 8, 32)
+SIGS = ("40,32,287,32,106,196; 6; File scanner (metasploit file scanning)\n"
+        "40,32,287,32,106,186,32; 7; Directory scanner\n"
+        "5,5,5; 3; triple five\n")  # tests/test_ushort.py's fixture
+CLI_FILES = 16  # the byte CLI phase splits the 64 MiB stream into 16 files
 PROBE_SRC = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
 WALK_SRC = "tpu_pattern_matching_torch/csrc/dfa_walk.cu"
 KERNELS = {  # launch-count key: (summary name, __global__ function,
@@ -79,6 +122,15 @@ KERNELS = {  # launch-count key: (summary name, __global__ function,
                     "tpu_pattern_matching/ops/verify_device.py:260"),
     "dense_walk": ("dfa_dense_walk", "dense_walk_kernel", WALK_SRC,
                    "tpu_pattern_matching/ops/match_xla.py:69"),
+    "sampled_u16": ("bloom_probe_sampled_u16", "probe_sampled_kernel",
+                    PROBE_SRC, "tpu_pattern_matching/ops/bloom.py:833"),
+    "strided_u16": ("bloom_probe_strided_u16", "probe_strided_kernel",
+                    PROBE_SRC, "tpu_pattern_matching/ops/bloom.py:687"),
+    "window_walk_u16": ("dfa_window_walk_u16", "window_walk_kernel",
+                        WALK_SRC,
+                        "tpu_pattern_matching/ops/verify_device.py:260"),
+    "dense_walk_u16": ("dfa_dense_walk_u16", "dense_walk_kernel", WALK_SRC,
+                       "tpu_pattern_matching/ops/match_xla.py:69"),
 }
 
 
@@ -236,12 +288,14 @@ def random_cfg(bloom, mode, q, sw, k, v, fold, seed):
     )
 
 
-def ragged_batch(torch, seed):
-    """The bench-shaped batch [4096, 4112] with ragged spans, on the card."""
+def ragged_batch(torch, seed, T=HALO + CHUNK_LEN, halo=HALO, n_sym=256):
+    """A batch [4096, T] of random symbols (uint8, or uint16 when the
+    alphabet is wider than a byte) with ragged spans, on the card."""
     rng = np.random.RandomState(seed)
-    C, T = BATCH_LANES, HALO + CHUNK_LEN
-    data_np = rng.randint(0, 256, size=(C, T)).astype(np.uint8)
-    start = rng.randint(0, HALO + 1, size=C).astype(np.int32)
+    C = BATCH_LANES
+    data_np = rng.randint(0, n_sym, size=(C, T)).astype(
+        np.uint8 if n_sym <= 256 else np.uint16)
+    start = rng.randint(0, halo + 1, size=C).astype(np.int32)
     end = rng.randint(T - 300, T + 1, size=C).astype(np.int32)
     empty = rng.rand(C) < 0.05
     end[empty] = start[empty]  # empty lanes
@@ -252,28 +306,16 @@ def ragged_batch(torch, seed):
             torch.from_numpy(np.stack([start, end])).to(dev))
 
 
-def phase_probes(torch, bloom, kernels, card_line: str) -> dict:
-    """K1, K2 and K3 against the plain probe on the card, bit for bit;
-    returns the times of the bench configs of each mode."""
+def check_probes(torch, bloom, kernels, data, bounds, configs, timed_modes,
+                 seed0, card_line) -> dict:
+    """Each probe config's kernel against the plain probe on the card, bit
+    for bit, on one batch; returns the times of the ``timed_modes``
+    configs, keyed by launch-count key."""
     dev = torch.device(DEVICE)
-    data, bounds = ragged_batch(torch, 1234)
-    rng = np.random.RandomState(99)
-    configs = [  # (label, mode, q, stride|w, k, v, fold, packed)
-        ("bench pick", "sampled", 4, 9, 6, 8, False, False),
-        ("k>8", "sampled", 4, 9, 12, 8, False, False),
-        ("v=256 (global words)", "sampled", 4, 9, 6, 256, False, False),
-        ("w=20 (wide context)", "sampled", 4, 20, 6, 8, False, False),
-        ("nocase", "sampled", 4, 9, 6, 8, True, False),
-        ("strided", "strided", 4, 4, 6, 16, False, False),
-        ("strided nocase k>8", "strided", 3, 5, 10, 4, True, False),
-        ("packed s4", "strided", 4, 4, 6, 16, False, True),
-        ("packed s8 nocase k>8", "strided", 4, 8, 10, 4, True, True),
-        ("packed s12 q6 v=256", "strided", 6, 12, 6, 256, False, True),
-    ]
-    timed_modes = ("bench pick", "strided", "packed s4")
+    rng = np.random.RandomState(99 + seed0)
     times = {}
     for i, (label, mode, q, sw, k, v, fold, packed) in enumerate(configs):
-        cfg = random_cfg(bloom, mode, q, sw, k, v, fold, seed=i)
+        cfg = random_cfg(bloom, mode, q, sw, k, v, fold, seed=seed0 + i)
         # random words: ~half the bits set, so a large share of tested
         # rows survives and every bank decision is compared
         words = torch.from_numpy(
@@ -308,6 +350,44 @@ def phase_probes(torch, bloom, kernels, card_line: str) -> dict:
     return times
 
 
+def phase_probes(torch, bloom, kernels, card_line) -> dict:
+    """K1, K2 and K3 against the plain probe on the card, bit for bit;
+    returns the times of the bench configs of each mode."""
+    data, bounds = ragged_batch(torch, 1234)
+    configs = [  # (label, mode, q, stride|w, k, v, fold, packed)
+        ("bench pick", "sampled", 4, 9, 6, 8, False, False),
+        ("k>8", "sampled", 4, 9, 12, 8, False, False),
+        ("v=256 (global words)", "sampled", 4, 9, 6, 256, False, False),
+        ("w=20 (wide context)", "sampled", 4, 20, 6, 8, False, False),
+        ("nocase", "sampled", 4, 9, 6, 8, True, False),
+        ("strided", "strided", 4, 4, 6, 16, False, False),
+        ("strided nocase k>8", "strided", 3, 5, 10, 4, True, False),
+        ("packed s4", "strided", 4, 4, 6, 16, False, True),
+        ("packed s8 nocase k>8", "strided", 4, 8, 10, 4, True, True),
+        ("packed s12 q6 v=256", "strided", 6, 12, 6, 256, False, True),
+    ]
+    return check_probes(torch, bloom, kernels, data, bounds, configs,
+                        ("bench pick", "strided", "packed s4"), 0, card_line)
+
+
+def phase_probes_u16(torch, bloom, kernels, card_line) -> dict:
+    """The uint16 builds of K1 and K2 against the plain probe on a ragged
+    uint16 batch at the ushort CLI's shape, bit for bit."""
+    data, bounds = ragged_batch(torch, 4321, T=U16_HALO + U16_TOKENS,
+                                halo=U16_HALO, n_sym=2048)
+    _, q, w, k, v = SAMPLED_U16
+    configs = [  # (label, mode, q, stride|w, k, v, fold, packed)
+        ("30k-signature pick", "sampled", q, w, k, v, False, False),
+        ("sampled w9 k>8", "sampled", 3, 9, 10, 8, False, False),
+        ("2000-signature pick", "strided", 3, 4, 6, 8, False, False),
+        ("fixture pick", "strided", 2, 2, 2, 1, False, False),
+        ("strided v=256", "strided", 3, 8, 8, 256, False, False),
+    ]
+    return check_probes(torch, bloom, kernels, data, bounds, configs,
+                        ("30k-signature pick", "2000-signature pick"), 100,
+                        card_line)
+
+
 def plant(rng, pats, size, density):
     data = rng.randint(0, 256, size=size).astype(np.uint8)
     L = len(pats[0])
@@ -334,10 +414,44 @@ def planted_batch(torch, pats, seed):
             torch.from_numpy(np.stack([start, end])).to(dev))
 
 
+def check_dense_walk(torch, kernels, table_flat, data_tm, bounds, dkw,
+                     label, card_line, timed_key=None):
+    """W1 against its plain version on the card, bit for bit; times it
+    when ``timed_key`` names its launch-count key."""
+    from tpu_pattern_matching_torch.ops import match_xla
+
+    T, C = data_tm.shape
+    got = kernels.launch_dense_walk(table_flat, data_tm, bounds, **dkw)
+    torch.cuda.synchronize()
+    want = match_xla.dense_walk_plain(table_flat, data_tm, bounds, **dkw)
+    err = max_abs_err(torch, got, want)
+    if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"[kernels] dense walk, {label}: kernel differs from plain "
+             f"(max_abs_err {err})")
+    key = "dense_walk_u16" if data_tm.dtype == torch.uint16 else "dense_walk"
+    line = (f"[kernels] {key:14s} {label:22s} {table_flat.dtype} table "
+            f"({table_flat.numel() * table_flat.element_size()} B), "
+            f"{data_tm.dtype} [{T}, {C}] R{dkw['max_results']} with "
+            f"gcounts: counts, slots and gcounts equal, tolerance 0 "
+            f"({int(want[0].sum())} reports, max {int(want[0].max())} in a "
+            f"lane)")
+    times = {}
+    if timed_key:
+        times[timed_key], text = timed(
+            torch,
+            functools.partial(kernels.launch_dense_walk, table_flat, data_tm,
+                              bounds, **dkw),
+            functools.partial(match_xla.dense_walk_plain, table_flat,
+                              data_tm, bounds, **dkw),
+            10, 1, err, card_line)
+        line += text
+    print(line, flush=True)
+    return times
+
+
 def phase_dense_walk(torch, kernels, workloads, card_line: str) -> dict:
     """W1 (dense walk) against its plain version on the card, bit for
     bit, at the int32 and the int16 table."""
-    from tpu_pattern_matching_torch.ops import match_xla
     from tpu_pattern_matching_torch.ops.table import DeviceTable
 
     dev = torch.device(DEVICE)
@@ -346,33 +460,42 @@ def phase_dense_walk(torch, kernels, workloads, card_line: str) -> dict:
         table, pats = w["table"], w["pats"]
         dt = DeviceTable.put(table, dev)
         data, bounds = planted_batch(torch, pats, seed=len(pats))
-        C, T = data.shape
-        data_tm = data.t().contiguous()
         dkw = dict(alphabet_size=256, halo=HALO, max_results=16,
                    state_gid=dt.state_gid, num_groups=dt.num_groups)
-        got = kernels.launch_dense_walk(dt.table_flat, data_tm, bounds, **dkw)
-        torch.cuda.synchronize()
-        want = match_xla.dense_walk_plain(dt.table_flat, data_tm, bounds,
-                                          **dkw)
-        err = max_abs_err(torch, got, want)
-        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
-            fail(f"[kernels] dense walk, {w['label']}: kernel differs from "
-                 f"plain (max_abs_err {err})")
-        line = (f"[kernels] dense_walk     {w['label']:22s} "
-                f"{dt.table_flat.dtype} table, [{T}, {C}] R16 with gcounts: "
-                f"counts, slots and gcounts equal, tolerance 0 "
-                f"({int(want[0].sum())} reports, max {int(want[0].max())} "
-                f"in a lane)")
-        if w["label"] == "bench workload":
-            times["dense_walk"], text = timed(
-                torch,
-                functools.partial(kernels.launch_dense_walk, dt.table_flat,
-                                  data_tm, bounds, **dkw),
-                functools.partial(match_xla.dense_walk_plain, dt.table_flat,
-                                  data_tm, bounds, **dkw),
-                10, 1, err, card_line)
-            line += text
-        print(line, flush=True)
+        times.update(check_dense_walk(
+            torch, kernels, dt.table_flat, data.t().contiguous(), bounds,
+            dkw, w["label"], card_line,
+            "dense_walk" if w["label"] == "bench workload" else None))
+    return times
+
+
+def phase_dense_walk_u16(torch, kernels, ush, card_line: str) -> dict:
+    """The uint16 build of W1 against its plain version on the card at
+    the ushort CLI's batch shape and alphabet 2048: the 2,000-signature
+    table as compiled (int16) and cast to int32, signatures planted at
+    1e-2 per token."""
+    from tpu_pattern_matching_torch.ops.table import DeviceTable
+
+    dev = torch.device(DEVICE)
+    dt = DeviceTable.put(ush["table"], dev)
+    rng = np.random.RandomState(5)
+    C, T = U16_LANES, U16_HALO + U16_TOKENS
+    data = plant_tokens(rng, ush["sigs"], C * T, 1e-2).reshape(C, T)
+    start = np.where(rng.rand(C) < 0.2, U16_HALO, 0).astype(np.int32)
+    end = rng.randint(T - 300, T + 1, size=C).astype(np.int32)
+    end[rng.rand(C) < 0.03] = U16_HALO  # empty lanes
+    data_tm = torch.from_numpy(data).to(dev).t().contiguous()
+    bounds = torch.from_numpy(np.stack([start, end])).to(dev)
+    dkw = dict(alphabet_size=2048, halo=U16_HALO, max_results=16,
+               state_gid=dt.state_gid, num_groups=dt.num_groups)
+    print(f"[kernels] ushort table: {ush['table'].num_states} states x 2048 "
+          f"symbols, {dt.table_flat.dtype}, {dt.nbytes} B on the card "
+          f"(int32: {dt.table_flat.numel() * 4} B)", flush=True)
+    times = check_dense_walk(torch, kernels, dt.table_flat, data_tm, bounds,
+                             dkw, "2000 signatures", card_line,
+                             "dense_walk_u16")
+    check_dense_walk(torch, kernels, dt.table_flat.to(torch.int32), data_tm,
+                     bounds, dkw, "same, cast to int32", card_line)
     return times
 
 
@@ -444,6 +567,7 @@ def phase_slice(torch, kernels, MatchSession, workloads, card_line) -> dict:
         sess = session(MatchSession, w)
         build_s = time.perf_counter() - t0
         cfg = sess.bloom_table.cfg
+        w["bloom_table"] = sess.bloom_table  # for the CLI phase
         rate = timed_find(torch, sess, w, "slice")
         modes.append("sampled" if cfg.sampled else "strided")
         print(f"[slice] {w['label']}, {w['n_planted']} planted: "
@@ -575,14 +699,16 @@ def phase_verify(torch, kernels, MatchSession, workloads, card_line):
     return launches, walks
 
 
-def phase_window_walk(torch, kernels, walks, card_line) -> dict:
-    """W2 against its plain version on the inputs of the verify phase's
-    largest launch of each workload, bit for bit, timed at the bench
-    workload's."""
+def phase_window_walk(torch, kernels, walks, timed_label, card_line) -> dict:
+    """W2 against its plain version on the inputs of a verify run's
+    largest launch of each workload, bit for bit, timed at
+    ``timed_label``'s (under the launch-count key of its symbol width)."""
     from tpu_pattern_matching_torch.ops import verify_device
 
     times = {}
     for label, (args, kw) in walks.items():
+        key = ("window_walk_u16" if args[1].dtype == torch.uint16
+               else "window_walk")
         got = kernels.launch_window_walk(*args, **kw)
         torch.cuda.synchronize()
         want = verify_device.window_walk_plain(*args, **kw)
@@ -590,13 +716,13 @@ def phase_window_walk(torch, kernels, walks, card_line) -> dict:
         if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
             fail(f"[kernels] window walk, {label}: kernel differs from "
                  f"plain (max_abs_err {err})")
-        line = (f"[kernels] window_walk    {label:22s} {args[0].dtype} "
-                f"table, the verify phase's largest launch: "
+        line = (f"[kernels] {key:15s} {label:22s} {args[0].dtype} table, "
+                f"{args[1].dtype} symbols, the verify run's largest launch: "
                 f"{args[3].shape[0]} slots ({int(args[5][0])} live) x "
                 f"{kw['steps']} steps over [{kw['C']}, {kw['T']}]: rep and "
                 f"state equal, tolerance 0 ({int(want[0].sum())} reports)")
-        if label == "bench workload":
-            times["window_walk"], text = timed(
+        if label == timed_label:
+            times[key], text = timed(
                 torch,
                 functools.partial(kernels.launch_window_walk, *args, **kw),
                 functools.partial(verify_device.window_walk_plain, *args,
@@ -604,8 +730,8 @@ def phase_window_walk(torch, kernels, walks, card_line) -> dict:
                 500, 5, err, card_line)
             line += text
         print(line, flush=True)
-    if "window_walk" not in times:
-        fail(f"[kernels] no window walk of the bench workload ({list(walks)})")
+    if not times:
+        fail(f"[kernels] no window walk of {timed_label} ({list(walks)})")
     return times
 
 
@@ -623,6 +749,321 @@ def phase_dense(torch, kernels, MatchSession, workloads, card_line) -> dict:
     return read_launches(kernels, "dense", ("dense_walk",))
 
 
+def plant_tokens(rng, sigs, n_tokens, density):
+    """n_tokens uint16 tokens like packet lengths (mostly 40-1514, one in
+    ten anywhere below 2048) with ``sigs`` planted at ``density`` planted
+    tokens per token (later plants may overwrite earlier ones; the oracle
+    reads the result)."""
+    data = packet_lengths(rng, n_tokens)
+    mean = np.mean([len(s) for s in sigs])
+    n = max(1, int(n_tokens * density / mean))
+    for pos, k in zip(rng.randint(0, n_tokens - 16, size=n),
+                      rng.randint(0, len(sigs), size=n)):
+        data[pos : pos + len(sigs[k])] = sigs[k]
+    return data
+
+
+def packet_lengths(rng, n):
+    v = rng.randint(40, 1515, size=n)
+    wild = rng.rand(n) < 0.1
+    v[wild] = rng.randint(0, 2048, size=int(wild.sum()))
+    return v.astype(np.uint16)
+
+
+def make_ushort_workload(tmp) -> dict:
+    """2,000 seeded signatures of 6-16 tokens and 64 flow files of 8 M
+    tokens in all, written under ``tmp``, with the native oracle's events
+    as (file, start offset, pattern id)."""
+    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from tpu_pattern_matching_torch.ushort import compile_signatures
+
+    rng = np.random.RandomState(2000)
+    sigs = [tuple(int(x) for x in packet_lengths(rng, rng.randint(6, 17)))
+            for _ in range(U16_SIGS)]
+    sig_path = os.path.join(tmp, "ushort.signatures")
+    with open(sig_path, "w") as f:
+        f.writelines(f"{','.join(map(str, sg))}; {len(sg)}; sig {i}\n"
+                     for i, sg in enumerate(sigs))
+    t0 = time.perf_counter()
+    table = compile_signatures(sig_path)
+    compile_s = time.perf_counter() - t0
+    flow_dir = os.path.join(tmp, "flows")
+    os.makedirs(flow_dir)
+    per_file = U16_TOTAL // U16_FILES
+    oracle = NativeOracle(sigs, alphabet=2048)
+    want = set()
+    for i in range(U16_FILES):
+        toks = plant_tokens(rng, sigs, per_file, U16_DENSITY)
+        name = os.path.join(flow_dir, f"10.0.{i // 8}.{i % 8 + 1}_"
+                            f"{40000 + i}_172.16.0.{i + 1}_443_tcp")
+        with open(name, "w") as f:
+            f.write(",".join(map(str, toks.tolist())))
+        oracle.reset()
+        off, pid, total = oracle.match(toks, cap=1 << 20)
+        if total > len(off):
+            fail("ushort oracle capacity exceeded")
+        want |= {(name, int(e) - len(sigs[p]) + 1, int(p))
+                 for e, p in zip(off, pid)}
+    print(f"[ushort] {U16_SIGS} signatures of 6-16 tokens (seed 2000): "
+          f"DFA {table.num_states} states x 2048 symbols, "
+          f"{table.goto_signed.dtype}, {table.nbytes} B, compiled in "
+          f"{compile_s:.2f} s; {U16_FILES} flow files, {U16_TOTAL} tokens, "
+          f"{len(want)} oracle events", flush=True)
+    return dict(sigs=sigs, sig_path=sig_path, table=table,
+                flow_dir=flow_dir, want=want)
+
+
+USHORT_LINE = re.compile(r"^Pattern (-?\d+) \('(.*)'\) found in file '(.*)' "
+                         r"at sequence offset (\d+) \[end: (\d+)\]$")
+BYTE_LINE = re.compile(r"^Pattern (-?\d+) \('(.*)'\) found in file '(.*)' "
+                       r"at offset (\d+) \[relative: (-?\d+)\]$")
+
+
+def run_cli(cli_main, argv, pattern=None) -> tuple[set, dict]:
+    """The port's CLI in this process: (the (file, offset, pattern id)
+    set of its verbose lines, its --json-stats record)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv + ["--json-stats", "--device", DEVICE])
+    if rc:
+        fail(f"[cli] {argv} exited {rc}")
+    lines = out.getvalue().split("\n")
+    stats = json.loads(next(ln for ln in reversed(lines)
+                            if ln.startswith("{")))
+    events = set()
+    for ln in lines:
+        m = pattern and ln.startswith("Pattern ") and pattern.match(ln)
+        if m:
+            events.add((m.group(3), int(m.group(4)), int(m.group(1))))
+    return events, stats
+
+
+def check_events(label, got, want) -> None:
+    if got != want:
+        fail(f"[{label}] {len(got)} events, oracle {len(want)}; only in the "
+             f"run: {sorted(got - want)[:3]}, only in the oracle: "
+             f"{sorted(want - got)[:3]}")
+
+
+def phase_ushort(torch, kernels, ush, card_line):
+    """The packet-metadata path through the CLI on each engine and a
+    sampled library session; returns the launch counts and the inputs of
+    the device-verify run's largest uint16 window walk."""
+    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from tpu_pattern_matching_torch.cli import main as cli_main
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+    t_phase = time.perf_counter()
+    walks = {}
+    launch = kernels.launch_window_walk
+
+    def keep_largest(*args, **kw):
+        best = walks.get("ushort")
+        if best is None or args[3].shape[0] > best[0][3].shape[0]:
+            walks["ushort"] = (args, kw)  # fresh tensors, never reused
+        return launch(*args, **kw)
+
+    base = ["-f", ush["flow_dir"], "-p", ush["sig_path"], "--ushort", "-v",
+            "-B", str(2 * U16_TOKENS), "-G", str(U16_LANES)]
+    runs = [("bloom", ["--engine", "bloom"], ("strided_u16",)),
+            ("bloom + device verify", ["--engine", "bloom", "--verify",
+                                       "device"],
+             ("strided_u16", "window_walk_u16")),
+            ("dense", ["--engine", "dense"], ("dense_walk_u16",))]
+    reset(kernels)
+    kernels.launch_window_walk = keep_largest
+    try:
+        for label, extra, needed in runs:
+            before = dict(kernels.launches)
+            got, st = run_cli(cli_main, base + extra, USHORT_LINE)
+            check_events(f"ushort {label}", got, ush["want"])
+            moved = {k: kernels.launches[k] - before[k] for k in needed}
+            if not all(moved.values()):
+                fail(f"[ushort] {label}: uint16 kernels not launched {moved}")
+            rate = U16_TOTAL / (st["wall_us"] / 1e6)
+            print(f"[ushort] CLI --engine {label}: {len(got)} events == "
+                  f"native oracle, matches_total {st['matches_total']}, "
+                  f"{st['rounds']} batches, launches {moved}; {rate:.6g} "
+                  f"tokens/s over the CLI's STATS time (smoke number, "
+                  f"{card_line})", flush=True)
+    finally:
+        kernels.launch_window_walk = launch
+    # the sampled (winnowing) uint16 probe: a library session whose filter
+    # is forced to the 30,000-signature pick
+    t0 = time.perf_counter()
+    before = kernels.launches["sampled_u16"]
+    sess = MatchSession(ush["table"], max_chunks=U16_LANES,
+                        chunk_len=U16_TOKENS, device=DEVICE, engine="bloom",
+                        bloom_opts={"force": SAMPLED_U16})
+    got = set()
+    for name in sorted(os.listdir(ush["flow_dir"])):
+        path = os.path.join(ush["flow_dir"], name)
+        with open(path, "rb") as f:
+            for e, p in sess.find(f.read()):
+                got.add((path, e - len(ush["sigs"][p]) + 1, p))
+    check_events("ushort sampled", got, ush["want"])
+    if kernels.launches["sampled_u16"] == before:
+        fail("[ushort] the sampled session never launched sampled_u16")
+    print(f"[ushort] library session, forced {cfg_name(sess.bloom_table.cfg)}"
+          f": {len(got)} events == native oracle, "
+          f"{kernels.launches['sampled_u16'] - before} sampled_u16 launches "
+          f"in {time.perf_counter() - t0:.2f} s (one find per file)",
+          flush=True)
+    # the 3-signature fixture of tests/test_ushort.py, on each engine
+    fx = os.path.join(os.path.dirname(ush["sig_path"]), "fixture")
+    os.makedirs(os.path.join(fx, "flows"))
+    with open(os.path.join(fx, "sigs"), "w") as f:
+        f.write(SIGS)
+    flows = {"10.0.0.1_444_10.0.0.2_443_tcp": [7, 40, 32, 287, 32, 106, 196,
+                                               9],
+             "10.0.0.3_80_10.0.0.4_443_tcp": [5, 5, 5, 5, 40, 32, 287, 32,
+                                              106, 186, 32]}
+    fsigs = [(40, 32, 287, 32, 106, 196), (40, 32, 287, 32, 106, 186, 32),
+             (5, 5, 5)]
+    oracle, fwant = NativeOracle(fsigs, alphabet=2048), set()
+    for name, toks in flows.items():
+        path = os.path.join(fx, "flows", name)
+        with open(path, "w") as f:
+            f.write(",".join(map(str, toks)))
+        oracle.reset()
+        off, pid, _ = oracle.match(np.asarray(toks, np.int32))
+        fwant |= {(path, int(e) - len(fsigs[p]) + 1, int(p))
+                  for e, p in zip(off, pid)}
+    for label, extra, _ in runs:
+        got, _st = run_cli(cli_main, ["-f", os.path.join(fx, "flows"), "-p",
+                                      os.path.join(fx, "sigs"), "--ushort",
+                                      "-v"] + extra, USHORT_LINE)
+        check_events(f"ushort fixture {label}", got, fwant)
+    print(f"[ushort] 3-signature fixture: {len(fwant)} events == native "
+          f"oracle on every engine", flush=True)
+    launches = read_launches(kernels, "ushort",
+                             ("sampled_u16", "strided_u16", "window_walk_u16",
+                              "dense_walk_u16"))
+    print(f"[ushort] phase wall time {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return launches, walks
+
+
+def phase_cli(torch, kernels, workloads, tmp, card_line) -> dict:
+    """The byte CLI on the bench workload split over 16 files (totals
+    against the oracle) and a -v -t run of the 3-pattern set (events
+    against the oracle)."""
+    from tpu_pattern_matching_torch.cli import main as cli_main
+
+    t_phase = time.perf_counter()
+    w = workloads[0]
+    d = os.path.join(tmp, "bytes")
+    os.makedirs(d)
+    size = len(w["data"]) // CLI_FILES
+    for i in range(CLI_FILES):
+        with open(os.path.join(d, f"part{i:02d}"), "wb") as f:
+            f.write(w["data"][i * size : (i + 1) * size])
+    dfa, bft = os.path.join(tmp, "bench.dfa.npz"), os.path.join(
+        tmp, "bench.bloom.npz")
+    w["table"].save(dfa)
+    w["bloom_table"].save(bft)
+    # oracle events whose occurrence lies inside one file (12-byte patterns)
+    inside = [(e, p) for e, p in w["want"] if (e - 11) // size == e // size]
+    want_total = len({e for e, _ in inside})
+    reset(kernels)
+    _, st = run_cli(cli_main, ["-f", d, "--load-dfa", dfa, "--load-bloom",
+                               bft, "-B", str(CHUNK_LEN), "-G",
+                               str(BATCH_LANES)])
+    if (st["matches_total"], st["matches_reported"]) != (want_total,
+                                                         len(inside)):
+        fail(f"[cli] bench workload: matches {st['matches_total']}/"
+             f"{st['matches_reported']}, oracle {want_total}/{len(inside)}")
+    print(f"[cli] bench workload over {CLI_FILES} files ({len(w['data'])} B):"
+          f" matches_total {st['matches_total']} == oracle, {st['rounds']} "
+          f"batches; {st['throughput_mbps']:.6g} Mbps by the CLI's STATS "
+          f"(smoke number, {card_line})", flush=True)
+    launches = read_launches(kernels, "cli", ("sampled",))
+    s = workloads[1]
+    pat_path = os.path.join(tmp, "three.hex")
+    with open(pat_path, "w") as f:
+        f.writelines(p.hex() + "\n" for p in s["pats"])
+    data_path = os.path.join(tmp, "three.bin")
+    with open(data_path, "wb") as f:
+        f.write(s["data"])
+    # text mode drops only matches across a newline: the oracle's events
+    # of the patterns with no newline in them
+    want = {(data_path, e - 11, p) for e, p in s["want"]
+            if b"\n" not in s["pats"][p]}
+    reset(kernels)
+    got, st = run_cli(cli_main, ["-f", data_path, "-p", pat_path, "-x", "-v",
+                                 "-t", "-B", str(CHUNK_LEN), "-G",
+                                 str(BATCH_LANES)], BYTE_LINE)
+    check_events("cli -v -t", got, want)
+    print(f"[cli] 3-pattern set, -v -t: {len(got)} 'Pattern' lines == "
+          f"native oracle's events ({st['lines']} lines processed)",
+          flush=True)
+    launches.update(read_launches(kernels, "cli -t", ("strided",)))
+    print(f"[cli] phase wall time {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return launches
+
+
+def phase_sentiment(torch, kernels, tmp, card_line) -> None:
+    """``run_library_mode`` of the port's sentiment app on a seeded word
+    list: the per-word counts equal the native oracle's."""
+    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from tpu_pattern_matching_torch.apps import sentiment
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(11)
+
+    def word():
+        return "".join(chr(97 + c)
+                       for c in rng.randint(0, 26, size=rng.randint(4, 9)))
+
+    vocab = sorted({word() for _ in range(600)})
+    neg, pos = vocab[:30], vocab[30:60]
+    paths = {k: os.path.join(tmp, f"sentiment.{k}") for k in
+             ("neg", "pos", "patterns", "text")}
+    for k, words in (("neg", neg), ("pos", pos)):
+        with open(paths[k], "w") as f:
+            f.write("\n".join(words) + "\n")
+    sentiment.build_sentiment_patterns(paths["neg"], paths["pos"], None,
+                                       paths["patterns"])
+    lines = [" ".join(rng.choice(vocab, size=rng.randint(5, 16)))
+             for _ in range(50_000)]
+    text = ("\n".join(lines) + "\n").encode()
+    with open(paths["text"], "wb") as f:
+        f.write(text)
+    captured = []
+    saved = sentiment.print_reports, sentiment.time
+    # a fixed clock makes every decay factor exactly 1: counters are counts
+    sentiment.time = types.SimpleNamespace(time=lambda: 1e9)
+    sentiment.print_reports = captured.append
+    reset(kernels)
+    try:
+        sentiment.run_library_mode(types.SimpleNamespace(
+            patterns=paths["patterns"], input=paths["text"],
+            chunk_size=CHUNK_LEN, global_ws=BATCH_LANES, interval=1e18,
+            device=DEVICE))
+    finally:
+        sentiment.print_reports, sentiment.time = saved
+    ana = captured[-1]
+    words = [f" {w} ".encode() for w in neg + pos]
+    off, pid, total = NativeOracle(words).match(text, cap=1 << 22)
+    want = np.bincount(pid, minlength=len(words))
+    got = np.zeros(len(words), np.int64)
+    for pi, c in ana.freq[60].items():
+        got[neg.index(ana.labels[pi]) if ana.iids[pi] < 0
+            else 30 + pos.index(ana.labels[pi])] = c.get()
+    if not np.array_equal(got, want) or ana.matches != total:
+        fail(f"[sentiment] per-word counts differ from the oracle "
+             f"({ana.matches} vs {total} matches)")
+    launches = read_launches(kernels, "sentiment", ())
+    if not launches["sampled"] + launches["strided"]:
+        fail(f"[sentiment] no probe kernel was launched ({launches})")
+    print(f"[sentiment] library mode over {len(text)} B of text: {total} "
+          f"matches of {len(words)} words, per-word counts == native oracle "
+          f"(launches {({k: v for k, v in launches.items() if v})}); phase "
+          f"wall time {time.perf_counter() - t_phase:.2f} s ({card_line})",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -638,18 +1079,32 @@ def main() -> None:
     card_line = card()
     phase_build(kernels, card_line)
     times = phase_probes(torch, bloom, kernels, card_line)
+    times.update(phase_probes_u16(torch, bloom, kernels, card_line))
     workloads = make_workloads()
     times.update(phase_dense_walk(torch, kernels, workloads, card_line))
-    launches = phase_slice(torch, kernels, MatchSession, workloads,
-                           card_line)
-    packed_launches, ab_fns = phase_packed(torch, bloom, kernels, card_line)
-    launches["strided_packed"] = packed_launches["strided_packed"]
-    verify_launches, walks = phase_verify(torch, kernels, MatchSession,
-                                          workloads, card_line)
-    launches["window_walk"] = verify_launches["window_walk"]
-    times.update(phase_window_walk(torch, kernels, walks, card_line))
-    launches["dense_walk"] = phase_dense(
-        torch, kernels, MatchSession, workloads, card_line)["dense_walk"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.") as tmp:
+        ush = make_ushort_workload(tmp)
+        times.update(phase_dense_walk_u16(torch, kernels, ush, card_line))
+        launches = phase_slice(torch, kernels, MatchSession, workloads,
+                               card_line)
+        packed_launches, ab_fns = phase_packed(torch, bloom, kernels,
+                                               card_line)
+        launches["strided_packed"] = packed_launches["strided_packed"]
+        verify_launches, walks = phase_verify(torch, kernels, MatchSession,
+                                              workloads, card_line)
+        launches["window_walk"] = verify_launches["window_walk"]
+        times.update(phase_window_walk(torch, kernels, walks,
+                                       "bench workload", card_line))
+        launches["dense_walk"] = phase_dense(
+            torch, kernels, MatchSession, workloads, card_line)["dense_walk"]
+        u16_launches, u16_walks = phase_ushort(torch, kernels, ush, card_line)
+        for key in ("sampled_u16", "strided_u16", "window_walk_u16",
+                    "dense_walk_u16"):
+            launches[key] = u16_launches[key]
+        times.update(phase_window_walk(torch, kernels, u16_walks, "ushort",
+                                       card_line))
+        phase_cli(torch, kernels, workloads, tmp, card_line)
+        phase_sentiment(torch, kernels, tmp, card_line)
     phase_trace(torch, times, ab_fns, card_line)
     if "jax" in sys.modules:
         fail("jax was imported")

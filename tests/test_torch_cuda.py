@@ -243,3 +243,139 @@ def test_device_verify_lane_passes_on_cuda(cuda, monkeypatch):
     assert sess.find(data) == sorted(zip(off.tolist(), pid.tolist()))
     assert len(passes) > 2 * 2 and max(passes) <= 64  # 2 batches, split
     assert kernels.launches["window_walk"] >= before + len(passes)
+
+
+# ------------------------------------------------- uint16 (ushort) symbols
+
+
+U16_CONFIGS = [  # (mode, q, stride|w, k, v)
+    ("sampled", 3, 4, 8, 32),
+    ("sampled", 3, 20, 10, 8),
+    ("strided", 3, 4, 6, 8),
+    ("strided", 2, 2, 2, 1),
+]
+
+
+def u16_case(cuda, seed, C=300, T=1000):
+    rng = np.random.RandomState(seed)
+    data = rng.randint(0, 2048, size=(C, T)).astype(np.uint16)
+    start = rng.randint(0, 20, size=C).astype(np.int32)
+    end = rng.randint(T - 50, T + 1, size=C).astype(np.int32)
+    end[::17] = start[::17]  # empty lanes
+    return (torch.from_numpy(data).to(cuda),
+            torch.from_numpy(np.stack([start, end])).to(cuda))
+
+
+@pytest.mark.parametrize(
+    "spec", U16_CONFIGS, ids=["-".join(map(str, s)) for s in U16_CONFIGS])
+def test_u16_probe_kernel_equals_plain(cuda, spec):
+    cfg = make_cfg(*spec, seed=11)
+    data, bounds = u16_case(cuda, 12)
+    rng = np.random.RandomState(13)
+    w = torch.from_numpy(rng.randint(-(2**31), 2**31, size=(
+        cfg.kbanks, cfg.v, 128)).astype(np.int32)).to(cuda)
+    data_tm, Cp = bloom.prep_time_major(data, cfg)
+    bp = bloom.pad_bounds(bounds, Cp)
+    key = spec[0] + "_u16"
+    before = kernels.launches[key]
+    k_bits, k_total = kernels.launch_probe(data_tm, bp, w, cfg)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + 1
+    p_bits, p_total = bloom.probe_bits_plain(data_tm, bp, w, cfg)
+    assert torch.equal(k_bits, p_bits)
+    assert int(k_total[0]) == int(p_total[0]) > 0
+
+
+def u16_walk_case(cuda, table_dtype):
+    from tpu_pattern_matching.core.dfa import AhoCorasick
+    from tpu_pattern_matching_torch.ops.table import DeviceTable
+
+    rng = np.random.RandomState(21)
+    sigs = [tuple(int(x) for x in rng.randint(0, 4, size=rng.randint(3, 8)))
+            for _ in range(40)]
+    ac = AhoCorasick(2048)
+    for s in sigs:
+        ac.add_pattern(s)
+    table = ac.compile()
+    table.goto_signed = table.goto_signed.astype(table_dtype)
+    C, T, halo = 700, 600, 8
+    data = rng.randint(0, 5, size=(C, T)).astype(np.uint16)
+    data[:, ::7] = rng.randint(0, 2048, size=data[:, ::7].shape)
+    start = np.where(rng.rand(C) < 0.5, 0, halo).astype(np.int32)
+    end = rng.randint(T - 40, T + 1, size=C).astype(np.int32)
+    end[::11] = start[::11]
+    return (DeviceTable.put(table, cuda), torch.from_numpy(data).to(cuda),
+            torch.from_numpy(np.stack([start, end])).to(cuda), halo)
+
+
+@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
+def test_u16_dense_walk_kernel_equals_plain(cuda, table_dtype):
+    from tpu_pattern_matching_torch.ops import match_xla
+
+    dt, data, bounds, halo = u16_walk_case(cuda, table_dtype)
+    data_tm = data.t().contiguous()
+    kw = dict(alphabet_size=2048, halo=halo, max_results=8,
+              state_gid=dt.state_gid, num_groups=dt.num_groups)
+    before = kernels.launches["dense_walk_u16"]
+    got = kernels.launch_dense_walk(dt.table_flat, data_tm, bounds, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["dense_walk_u16"] == before + 1
+    want = match_xla.dense_walk_plain(dt.table_flat, data_tm, bounds, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[0].max()) > 8
+
+
+@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
+def test_u16_window_walk_kernel_equals_plain(cuda, table_dtype):
+    from tpu_pattern_matching_torch.ops import verify_device
+
+    dt, data, bounds, halo = u16_walk_case(cuda, table_dtype)
+    C, T = data.shape
+    rng = np.random.RandomState(22)
+    keys = np.unique(rng.randint(0, C, size=3000) * T
+                     + rng.randint(0, T - 2, size=3000))
+    lane = np.full(3200, C, np.int32)
+    row = np.full(3200, 0x7FFFFFFF, np.int32)
+    lane[: len(keys)] = keys // T
+    row[: len(keys)] = keys % T
+    args = (dt.table_flat, data.reshape(-1), bounds,
+            torch.from_numpy(lane).to(cuda), torch.from_numpy(row).to(cuda),
+            torch.tensor([len(keys)], dtype=torch.int64, device=cuda))
+    kw = dict(C=C, T=T, alphabet_size=2048, q=2, lmax=dt.max_pat_len,
+              halo=halo, steps=verify_device.walk_steps(dt.max_pat_len, 2))
+    before = kernels.launches["window_walk_u16"]
+    rep, st = kernels.launch_window_walk(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["window_walk_u16"] == before + 1
+    p_rep, p_st = verify_device.window_walk_plain(*args, **kw)
+    assert torch.equal(rep, p_rep) and torch.equal(st, p_st)
+    assert int(p_rep.sum()) > 100
+
+
+def test_ushort_sessions_on_cuda_equal_oracle(cuda):
+    from tpu_pattern_matching.core.dfa import AhoCorasick
+
+    rng = np.random.RandomState(23)
+    sigs = [tuple(int(x) for x in rng.randint(40, 1515, size=rng.randint(
+        6, 17))) for _ in range(200)]
+    ac = AhoCorasick(2048)
+    for s in sigs:
+        ac.add_pattern(s)
+    table = ac.compile()
+    toks = rng.randint(0, 2048, size=200_000).astype(np.uint16)
+    for i, pos in enumerate(rng.randint(0, len(toks) - 16, size=150)):
+        toks[pos : pos + len(sigs[i % 200])] = sigs[i % 200]
+    off, pid, _ = NativeOracle(sigs, alphabet=2048).match(toks)
+    want = sorted(zip(off.tolist(), pid.tolist()))
+    text = ",".join(map(str, toks.tolist())).encode()
+    for kw, key in ((dict(engine="bloom"), "strided_u16"),
+                    (dict(engine="bloom", verify="device"), "window_walk_u16"),
+                    (dict(engine="bloom", bloom_opts={"force": (
+                        "sampled", 3, 4, 8, 32)}), "sampled_u16"),
+                    (dict(), "dense_walk_u16")):
+        before = kernels.launches[key]
+        sess = MatchSession(table, max_chunks=256, chunk_len=512,
+                            device=cuda, **kw)
+        assert sess.find(text) == want and len(want) >= 140
+        assert kernels.launches[key] > before, kw

@@ -199,9 +199,16 @@ def test_unported_options_raise(kw, item):
 
 
 def test_ushort_tables_raise():
+    # ushort tables run every single-device path now
+    # (tests/test_torch_ushort.py); like byte tables, they raise only for
+    # the options not ported yet
     table = compile_patterns([[1, 2000, 3]], alphabet_size=2048)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MatchSession(table, device="cpu")
+    for kw, item in ((dict(pat_shards=2), "item 10"),
+                     (dict(mesh=2), "item 11")):
+        with pytest.raises(NotImplementedError, match=item):
+            MatchSession(table, device="cpu", **kw)
+    assert MatchSession(table, device="cpu").find(b"7, 1, 2000, 3") == [
+        (3, 0)]
 
 
 def test_cuda_request_never_runs_on_cpu():
@@ -216,7 +223,7 @@ def test_cuda_request_never_runs_on_cpu():
         resolve_device("meta")
 
 
-def test_port_imports_and_runs_without_jax():
+def test_port_imports_and_runs_without_jax(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any 'import jax' now raises
@@ -231,13 +238,23 @@ def test_port_imports_and_runs_without_jax():
         "    s = session_for_patterns([b'abcd', b'cde'], max_chunks=4, "
         "chunk_len=64, device='cpu', **kw)\n"
         "    assert s.find(b'xxabcdexx' * 20) == got, kw\n"
+        "import tpu_pattern_matching_torch.cli\n"
+        "import tpu_pattern_matching_torch.engine\n"
+        "import tpu_pattern_matching_torch.apps.sentiment\n"
+        "from tpu_pattern_matching_torch.ushort import compile_signatures\n"
+        "from tpu_pattern_matching_torch.runtime.session import "
+        "MatchSession\n"
+        "open('sigs', 'w').write('5,500,1999; 3; x\\n')\n"
+        "u = MatchSession(compile_signatures('sigs'), max_chunks=4, "
+        "chunk_len=16, device='cpu', engine='bloom')\n"
+        "assert u.find(b'1, 5, 500, 1999, 5') == [(3, 0)]\n"
         "mods = [m for m in sys.modules if m.startswith('jax') and "
         "sys.modules[m] is not None]\n"
         "assert not mods, mods\n"
         "print('OK')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "OK"

@@ -2,9 +2,10 @@
 
 The JAX package beside this one is the reference; this package runs its
 single-device pipelines — the q-gram bloom probe with on-device exact-gram
-refinement and host or device verify, and the dense DFA engine — with
-every kernel hand-written in CUDA under ``csrc/``, and is held to the
-reference bit for bit by ``tests/test_torch_*.py``.
+refinement and host or device verify, and the dense DFA engine, over byte
+lanes or uint16 packet-metadata lanes — with every kernel hand-written in
+CUDA under ``csrc/``, and is held to the reference bit for bit by
+``tests/test_torch_*.py``.
 
 Layout mirrors the reference so each module's counterpart is easy to find:
 
@@ -12,13 +13,20 @@ Layout mirrors the reference so each module's counterpart is easy to find:
                 gram table, device verify, the dense table, walk and
                 compaction, the CUDA kernel loader.
 - ``runtime`` — ``MatchSession`` (``engine="bloom"`` with
-                ``verify="host"`` or ``"device"``, ``engine="dense"``).
+                ``verify="host"`` or ``"device"``, ``engine="dense"``) and
+                the ``--profile`` trace.
+- ``engine``  — the benchmark scan-total hook.
+- ``ushort``  — the packet-metadata grep (``run_ushort_grep``).
+- ``cli``     — ``torch_aho_grep``, the reference CLI's surface.
+- ``apps``    — the sentiment app on the port's session and CLI.
 - ``utils``   — the explicit device resolver.
 
 Host modules with no JAX in them are imported from the reference package,
 not copied: ``core.*`` (DFA compiler, pattern parsing, native oracle),
-``runtime.buffers``, ``runtime.verify``, ``runtime.stager_native`` and
-``utils.common``/``utils.debug``. This package never imports ``jax``.
+``runtime.buffers``, ``runtime.verify``, ``runtime.feeder``,
+``runtime.files``, ``runtime.stats``, ``runtime.stager_native``,
+``utils.common``/``utils.debug``, ``runtime.tracing.PhaseTimer`` and the
+sentiment app's counters. This package never imports ``jax``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,477 @@
+"""``torch_aho_grep`` — the grep-style CLI of the PyTorch port.
+
+    python -m tpu_pattern_matching_torch.cli -f INPUT -p PATTERNS [flags]
+
+Port of the reference's ``tpu_pattern_matching/cli.py`` (``tpu_aho_grep``),
+single process: the same flags, messages, exit codes, verbose lines
+("Pattern <id> ('<label>') found in file ..."), context echo and STATS
+block, so the apps that read its standard output work unchanged.
+
+  -f file(s)      input: a directory, a single file, or comma-separated files
+  -p file         pattern file (one per line; auto-detected "ID PATTERN"
+                  categorical format)
+  -B chunk_size   bytes per chunk lane
+  -G global_ws    chunk lanes per batch (buffer = G * B bytes)
+  -L local_ws     accepted for compatibility
+  -D devpos       CUDA device ordinal
+  -m max          truncate patterns to max bytes
+  -w cpu_threads  feeder threads (round-robin over files, default 2)
+  -R max          result slots per chunk (default 16)
+  -v              verbose per-match lines
+  -t              text mode (line-wise chunks)
+  -x              printable-hex patterns
+  -F              follow mode (keep scanning growing files/FIFOs)
+  -M              accepted for compatibility
+  -i              ASCII case-insensitive matching
+  --ushort        packet-metadata mode (signature files, flow files)
+  --engine        auto | bloom | dense;  --verify auto | host | device
+  --sort, --sort-global, --save-dfa/--load-dfa, --save-bloom/--load-bloom,
+  --json-stats, --profile DIR (a torch.profiler Chrome trace of the run)
+  --device        cuda (default) | cpu
+
+``--device cpu`` runs the kernels' plain PyTorch versions on the CPU (the
+counterpart of the reference's ``JAX_PLATFORMS=cpu``) and is the only way
+onto the CPU: without a GPU, ``--device cuda`` exits with an error.
+
+Not ported yet (exit 2, naming the ROADMAP queue-1 item): ``--mesh``,
+``--pat-shards`` > 1, ``--num-processes`` > 1 and a pattern-sharded
+``--load-bloom`` dump.
+
+``check_args``, ``align_parameters``, ``raise_nofile_limit`` and
+``compile_table`` are copies of the reference's: its module imports the
+JAX session at its top.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+
+import numpy as np
+import torch
+
+from tpu_pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick, DfaTable
+from tpu_pattern_matching.core.patterns import (
+    load_pattern_file,
+    load_signature_file,
+)
+from tpu_pattern_matching.runtime.feeder import Feeder
+from tpu_pattern_matching.runtime.files import expand_paths
+from tpu_pattern_matching.runtime.stats import RunStats
+from tpu_pattern_matching.utils.common import now_us
+from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="torch_aho_grep",
+        description="GPU multi-pattern matcher (Aho-Corasick DFA scan, "
+        "PyTorch + CUDA)",
+    )
+    ap.add_argument("-f", dest="data_path", required=True, help="input file(s)/dir")
+    ap.add_argument("-p", dest="pat_path", help="pattern file")
+    ap.add_argument("-B", dest="chunk_size", type=int, default=4096)
+    ap.add_argument("-G", dest="global_ws", type=int, default=2048)
+    ap.add_argument("-L", dest="local_ws", type=int, default=0)  # compat no-op
+    ap.add_argument("-D", dest="dev_pos", type=int, default=0,
+                    help="CUDA device ordinal")
+    ap.add_argument("-m", dest="pat_size_limit", type=int, default=-1)
+    ap.add_argument("-w", dest="thread_no", type=int, default=2)
+    ap.add_argument("-R", dest="max_results", type=int, default=16)
+    ap.add_argument("-v", dest="verbose", action="store_true")
+    ap.add_argument("-t", dest="text_mode", action="store_true")
+    ap.add_argument("-x", dest="hex_pat", action="store_true")
+    ap.add_argument("-F", dest="follow", action="store_true")
+    ap.add_argument("-M", dest="mapped", action="store_true")  # compat no-op
+    ap.add_argument(
+        "-i",
+        dest="nocase",
+        action="store_true",
+        help="ASCII case-insensitive matching",
+    )
+    ap.add_argument("--ushort", action="store_true", help="packet-metadata mode")
+    ap.add_argument("--sort", action="store_true")
+    ap.add_argument(
+        "--sort-global",
+        dest="sort_global",
+        action="store_true",
+        help="buffer ALL verbose match lines and emit them in one global "
+        "canonical (file, offset) order at end of run (requires -v; "
+        "memory grows with the total match count; incompatible with -F, "
+        "which never ends)",
+    )
+    ap.add_argument("--mesh", default=None, metavar="N|all",
+                    help="not ported yet (ROADMAP queue 1, item 11)")
+    ap.add_argument("--pat-shards", dest="pat_shards", type=int, default=1,
+                    metavar="S",
+                    help="not ported yet past 1 (ROADMAP queue 1, item 10)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="not ported yet past 1 (ROADMAP queue 1, item 11)")
+    ap.add_argument(
+        "--engine",
+        choices=("auto", "bloom", "dense"),
+        default="auto",
+        help="scan engine: auto (default; bloom for byte patterns; for "
+        "--ushort bloom on a CUDA device, dense on the CPU), bloom "
+        "(q-gram filter + exact verify), dense (DFA walk, exact on device)",
+    )
+    ap.add_argument(
+        "--verify",
+        choices=("auto", "host", "device"),
+        default="auto",
+        help="bloom engine exactness stage: host (native CPU window "
+        "walker), device (candidate windows walk the dense table on the "
+        "device), auto (host)",
+    )
+    ap.add_argument("--save-dfa", dest="save_dfa")
+    ap.add_argument("--load-dfa", dest="load_dfa")
+    ap.add_argument(
+        "--save-bloom", dest="save_bloom",
+        help="dump the compiled bloom filter (npz) after building it",
+    )
+    ap.add_argument(
+        "--load-bloom", dest="load_bloom",
+        help="load a precompiled bloom filter instead of rebuilding "
+        "(pair with --load-dfa for a build-free cold start)",
+    )
+    ap.add_argument("--json-stats", action="store_true")
+    ap.add_argument("--profile",
+                    help="write a torch.profiler trace to this dir")
+    ap.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="cuda (default; exits with an error without a GPU) or cpu "
+        "(the kernels' plain PyTorch versions)",
+    )
+    return ap
+
+
+MAX_PAT_SIZE = 4096  # reference utils.h:14
+
+
+def check_args(args) -> None:
+    """Argument validation (reference check_args, ocl_aho_grep.c:210-267).
+
+    argparse covers presence/typing; the value-range rules are mirrored
+    here with the reference's messages."""
+    import os
+
+    err = 0
+    if args.pat_path and not os.path.exists(args.pat_path) and not args.load_dfa:
+        print(f"ERROR: File '{args.pat_path}' does not exist", file=sys.stderr)
+        err += 1
+    if args.thread_no <= 0:
+        print("ERROR: The thread number must be greater than 0", file=sys.stderr)
+        err += 1
+    if args.pat_size_limit != -1 and args.pat_size_limit <= 0:
+        print("ERROR: The pattern size limit should be >= 1", file=sys.stderr)
+        err += 1
+    if args.pat_size_limit >= MAX_PAT_SIZE:
+        print(
+            f"ERROR: The pattern size limit should be <= {MAX_PAT_SIZE - 1}",
+            file=sys.stderr,
+        )
+        err += 1
+    if args.max_results <= 0:
+        print("ERROR: The maximum result cells should be >= 1", file=sys.stderr)
+        err += 1
+    if args.chunk_size <= 0 or args.global_ws <= 0:
+        print("ERROR: chunk size and global work size must be >= 1",
+              file=sys.stderr)
+        err += 1
+    if getattr(args, "sort_global", False) and args.follow:
+        print(
+            "ERROR: --sort-global buffers the whole run's matches; a -F "
+            "follow stream never ends (use --sort for per-batch order)",
+            file=sys.stderr,
+        )
+        err += 1
+    if err:
+        sys.exit(2)
+
+
+def align_parameters(args) -> None:
+    """Round -B (and -L/-G, accepted for compatibility) to 16 with a
+    warning (reference align_parameters, ocl_aho_grep.c:315-346)."""
+    from tpu_pattern_matching.utils.common import roundup
+
+    if args.local_ws % 16:
+        fixed = roundup(args.local_ws, 16)
+        print(
+            f"WARNING: local work size '{args.local_ws}' is not 16B "
+            f"aligned. Will use '{fixed}' instead",
+            file=sys.stderr,
+        )
+        args.local_ws = fixed
+    if args.global_ws % 16:
+        fixed = roundup(args.global_ws, 16)
+        print(
+            f"WARNING: global work size {args.global_ws} is not 16B "
+            f"aligned. Will use '{fixed}' instead.",
+            file=sys.stderr,
+        )
+        args.global_ws = fixed
+    if args.chunk_size % 16:
+        fixed = roundup(args.chunk_size, 16)
+        print(
+            f"WARNING: max chunk size '{args.chunk_size}' is not 16B aligned. "
+            f"Will use '{fixed}' instead.",
+            file=sys.stderr,
+        )
+        args.chunk_size = fixed
+
+
+def raise_nofile_limit() -> None:
+    """Expand RLIMIT_NOFILE to the hard max (ocl_aho_grep.c:462-472)."""
+    try:
+        import resource
+
+        soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+        if soft < hard:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    except Exception:
+        pass
+
+
+def compile_table(args) -> DfaTable:
+    if args.load_dfa:
+        return DfaTable.load(args.load_dfa)
+    if not args.pat_path:
+        print("ERROR: No pattern file", file=sys.stderr)
+        sys.exit(2)
+    if args.ushort:
+        parsed = load_signature_file(args.pat_path)
+        ac = AhoCorasick(ALPHABET_USHORT)
+    else:
+        parsed = load_pattern_file(
+            args.pat_path, hex_pat=args.hex_pat, pat_size_limit=args.pat_size_limit
+        )
+        ac = AhoCorasick(nocase=getattr(args, "nocase", False))
+    if not parsed:
+        print("ERROR: pattern file is empty", file=sys.stderr)
+        sys.exit(2)
+    for p in parsed:
+        ac.add_pattern(p.data, iid=p.iid, label=p.label)
+    table = ac.compile()
+    if args.save_dfa:
+        table.save(args.save_dfa)
+    return table
+
+
+def _not_ported(what: str, item: str) -> None:
+    print(f"ERROR: {what} is not ported to the PyTorch package yet "
+          f"(ROADMAP queue 1, {item}); use tpu_aho_grep for it",
+          file=sys.stderr)
+    sys.exit(2)
+
+
+def check_not_ported(args) -> None:
+    """Exit 2, naming the ROADMAP item, for the multi-device flags."""
+    if args.mesh is not None:
+        _not_ported("--mesh", "item 11")
+    if args.pat_shards > 1:
+        _not_ported("--pat-shards > 1", "item 10")
+    if args.num_processes > 1:
+        _not_ported("--num-processes > 1", "item 11")
+
+
+def select_device(args) -> torch.device:
+    """The run's device from ``--device`` and ``-D``; exits 2 (never falls
+    back) when it does not exist."""
+    if args.device == "cpu":
+        if args.dev_pos != 0:
+            print(f"ERROR: device position {args.dev_pos} not available",
+                  file=sys.stderr)
+            sys.exit(2)
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        print("ERROR: --device cuda: no CUDA device is available "
+              "(torch.cuda.is_available() is False); pass --device cpu to "
+              "run the plain PyTorch path", file=sys.stderr)
+        sys.exit(2)
+    if not 0 <= args.dev_pos < torch.cuda.device_count():
+        print(f"ERROR: device position {args.dev_pos} not available",
+              file=sys.stderr)
+        sys.exit(2)
+    return torch.device("cuda", args.dev_pos)
+
+
+def load_bloom(path: str):
+    """The port's filter from a ``--save-bloom`` dump; exits 2 for a
+    pattern-sharded dump (not ported)."""
+    from tpu_pattern_matching_torch.ops.bloom import BloomFilterTable
+
+    with np.load(path) as z:
+        if "pshard_words" in z:
+            _not_ported("a pattern-sharded --load-bloom dump", "item 10")
+    return BloomFilterTable.load(path)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_argparser().parse_args(argv)
+    raise_nofile_limit()
+    check_args(args)
+    align_parameters(args)
+    # stdout is the apps' API (they consume the verbose match lines); when
+    # it is a pipe Python block-buffers ~8 KB, so in -F follow mode a match
+    # line could sit invisible to the consumer. Line-buffer it.
+    try:
+        sys.stdout.reconfigure(line_buffering=True)
+    except (AttributeError, ValueError):  # non-standard streams
+        pass
+    check_not_ported(args)
+    device = select_device(args)
+
+    if args.ushort:
+        from tpu_pattern_matching_torch.ushort import run_ushort_grep
+
+        return run_ushort_grep(args, device)
+
+    table = compile_table(args)
+
+    filenames = expand_paths(args.data_path)
+    if not filenames:
+        print("ERROR: Could not open input file(s) for reading.", file=sys.stderr)
+        sys.exit(2)
+
+    bloom_table = load_bloom(args.load_bloom) if args.load_bloom else None
+
+    sess = MatchSession(
+        table,
+        max_chunks=args.global_ws,
+        chunk_len=args.chunk_size,
+        max_results=args.max_results,
+        sort=args.sort or args.sort_global,
+        engine=args.engine,
+        verify=args.verify,
+        device=device,
+        bloom_table=bloom_table,
+    )
+    if args.save_bloom:
+        if sess.engine == "bloom":
+            sess.bloom_table.save(args.save_bloom)
+        else:
+            print(
+                f"WARNING: --save-bloom ignored: the session resolved to "
+                f"the '{sess.engine}' engine (no filter was built); pass "
+                f"--engine bloom to force one",
+                file=sys.stderr,
+            )
+
+    feeder = Feeder(
+        filenames,
+        n_workers=args.thread_no,
+        max_chunks=sess.max_chunks,
+        chunk_len=args.chunk_size,
+        halo=sess.halo,
+        text_mode=args.text_mode,
+        follow=args.follow,
+        process_id=0,
+        num_processes=1,
+    )
+
+    stats = RunStats(
+        files=len(filenames),
+        automaton_states=table.num_states,
+        automaton_bytes=table.nbytes,
+    )
+
+    # SIGINT: drain and flush a final batch (ocl_aho_grep.c:25-31, 61-65)
+    def _sigint(signum, frame):
+        feeder.stop()
+
+    signal.signal(signal.SIGINT, _sigint)
+
+    from collections import deque
+
+    from tpu_pattern_matching_torch.runtime.tracing import device_trace
+
+    def context_echo(batch, ev, pat_n: int) -> str:
+        """The reference's match-context echo (ocl_aho_grep.c:289-303):
+        text mode prints the matched line; binary mode a +-10-byte window
+        around the occurrence, cut at the first newline."""
+        row = batch.data[ev.lane]
+        lo = int(batch.start_t[ev.lane])
+        hi = int(batch.end_t[ev.lane])
+        if args.text_mode:
+            return bytes(row[batch.halo : hi]).decode(
+                "latin-1", "replace"
+            ).rstrip("\n")
+        end_row = batch.halo + int(ev.end_offset - batch.base_off[ev.lane])
+        w0 = max(lo, end_row - pat_n + 1 - 10)
+        w1 = min(hi, end_row + 1 + 10)
+        window = bytes(row[w0:w1])
+        nl = window.find(b"\n")
+        if nl != -1:
+            window = window[:nl]
+        return " ... " + window.decode("latin-1", "replace") + " ... "
+
+    global_out: list = []  # --sort-global: (canonical key, rendered lines)
+
+    def consume(item, comp):
+        bm = sess.decode(item.batch, comp)
+        stats.rounds += 1
+        stats.bytes += item.bytes
+        stats.lines += item.lines
+        stats.matches_total += bm.total
+        # "Matches reported" counts expanded pattern ids (one per pattern
+        # in a co-terminating group), as the reference CLI does
+        stats.matches_reported += sum(len(e.pattern_indices) for e in bm.events)
+        if bm.overflowed:
+            print(
+                f"WARNING: result slots overflowed: {bm.total - bm.reported} "
+                f"match(es) not reported this round (raise -R)",
+                file=sys.stderr,
+            )
+        if args.verbose:
+            for ev in bm.events:
+                fname = filenames[ev.file_id]
+                for pidx in ev.pattern_indices:
+                    pat = table.patterns[pidx]
+                    start_off = ev.end_offset - pat.n + 1
+                    rel = start_off - int(item.batch.base_off[ev.lane])
+                    lines = (
+                        f"Pattern {pat.iid} ('{pat.label}') found in file "
+                        f"'{fname}' at offset {start_off} [relative: {rel}]"
+                        f"\n{context_echo(item.batch, ev, pat.n)}"
+                    )
+                    if args.sort_global:
+                        # run-end sort on the canonical key (MATCHING.md
+                        # "--sort semantics"): the order is global across
+                        # worker and batch interleaving
+                        global_out.append(
+                            ((ev.file_id, ev.end_offset, pidx), lines)
+                        )
+                    else:
+                        print(lines)
+
+    start = now_us()
+    with device_trace(args.profile):
+        feeder.start()
+        # depth-2 pipeline: the device scans batch k+1 while the host
+        # decodes batch k. Follow mode runs depth 1: a held batch's
+        # matches would wait for the NEXT batch, which a quiet stream may
+        # never produce.
+        depth = 1 if args.follow else 2
+        pending: deque = deque()
+        for item in feeder:
+            comp = sess.scan(item.batch)
+            pending.append((item, comp))
+            if len(pending) >= depth:
+                consume(*pending.popleft())
+        while pending:
+            consume(*pending.popleft())
+    if args.sort_global:
+        global_out.sort(key=lambda kv: kv[0])
+        for _key, lines in global_out:
+            print(lines)
+    stats.wall_us = now_us() - start
+
+    print(stats.render())
+    if args.json_stats:
+        print(stats.to_json())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,8 +8,11 @@
 // all launched by _probe_bits_jit. The reference ANDs one Pallas call per
 // group of 8 banks; these kernels probe all k banks in one pass.
 //
-// Layout: data_tm [T, C] uint8 time-major (the packed kernel: [T/4, C]
-// uint32 words of 4 little-endian symbols), bounds [2, C] int32 (start_t,
+// Layout: data_tm [T, C] time-major symbols, uint8 or uint16 (the ushort
+// alphabet of 2048; the sampled and strided kernels are instantiated for
+// both widths, the packed kernel exists for bytes only, as in the
+// reference), or for the packed kernel [T/4, C] uint32 words of 4
+// little-endian bytes; bounds [2, C] int32 (start_t,
 // end_t), words [k, v, 128] uint32. Output bits [T/(32*stride), C] int32:
 // bit b of bits[w, c] is the gram starting at row (w*32 + b)*stride of
 // lane c; *total += popcount of the whole bitmap (zeroed by the caller).
@@ -17,7 +20,8 @@
 // Mapping: one thread per lane, 128 lanes per block, so a warp reads 32
 // adjacent bytes of each row; each thread writes kWordsPerThread output
 // words (32 rows each) of its lane. What bounds it on this card: the
-// per-row hashing (q loads and multiply-adds per hashed row) and the
+// per-row hashing (q loads and multiply-adds per hashed row; a uint16
+// row is 64 bytes per warp instead of 32) and the
 // random bank-word gathers. The bank words are staged in shared memory
 // when they fit (k*v*512 B <= 48 KB: 24 KB at the k6 v8 bench pick), so a
 // gather costs a shared-memory access instead of an L1 line; larger
@@ -53,9 +57,9 @@ __device__ __forceinline__ void add_total(int32_t* total, uint32_t acc) {
 
 // Winnowing-sampled probe (tpm::sampled_word). MAXCTX bounds w-1: it sizes
 // the per-thread array of selection hashes.
-template <int MAXCTX>
+template <int MAXCTX, typename Sym>
 __global__ void __launch_bounds__(kBlockLanes) probe_sampled_kernel(
-    const uint8_t* __restrict__ data, const int32_t* __restrict__ bounds,
+    const Sym* __restrict__ data, const int32_t* __restrict__ bounds,
     const uint32_t* __restrict__ words, int32_t* __restrict__ bits,
     int32_t* __restrict__ total, const ProbeParams p, int words_in_smem) {
   extern __shared__ uint32_t smem_words[];
@@ -76,8 +80,9 @@ __global__ void __launch_bounds__(kBlockLanes) probe_sampled_kernel(
 }
 
 // Strided probe (tpm::strided_word).
+template <typename Sym>
 __global__ void __launch_bounds__(kBlockLanes) probe_strided_kernel(
-    const uint8_t* __restrict__ data, const int32_t* __restrict__ bounds,
+    const Sym* __restrict__ data, const int32_t* __restrict__ bounds,
     const uint32_t* __restrict__ words, int32_t* __restrict__ bits,
     int32_t* __restrict__ total, const ProbeParams p, int words_in_smem) {
   extern __shared__ uint32_t smem_words[];
@@ -131,16 +136,39 @@ dim3 grid_for(const ProbeParams& p) {
               p.C / kBlockLanes);
 }
 
+template <typename Sym>
+void launch_sampled(const void* data, const int32_t* bd, const uint32_t* wd,
+                    int32_t* out, int32_t* tot, const ProbeParams& p,
+                    size_t smem, cudaStream_t s) {
+  const auto* d = static_cast<const Sym*>(data);
+  if (p.w - 1 <= 16)
+    probe_sampled_kernel<16, Sym><<<grid_for(p), kBlockLanes, smem, s>>>(
+        d, bd, wd, out, tot, p, smem > 0);
+  else
+    probe_sampled_kernel<128, Sym><<<grid_for(p), kBlockLanes, smem, s>>>(
+        d, bd, wd, out, tot, p, smem > 0);
+}
+
+template <typename Sym>
+void launch_strided(const void* data, const int32_t* bd, const uint32_t* wd,
+                    int32_t* out, int32_t* tot, const ProbeParams& p,
+                    size_t smem, cudaStream_t s) {
+  probe_strided_kernel<Sym><<<grid_for(p), kBlockLanes, smem, s>>>(
+      static_cast<const Sym*>(data), bd, wd, out, tot, p, smem > 0);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (or -1 for arguments the kernels do not take); it never synchronises.
+// `sym16` selects uint16 symbols (else uint8); the packed kernel takes
+// bytes only.
 int tpm_probe_sampled(const void* data, const void* bounds, const void* words,
                       void* bits, void* total, int T, int C, int q,
-                      int kbanks, int v, int w, int fold, const void* mix1,
-                      const void* mix2, void* stream) {
+                      int kbanks, int v, int w, int fold, int sym16,
+                      const void* mix1, const void* mix2, void* stream) {
   ProbeParams p;
   if (tpm::fill_params(p, T, C, q, 1, kbanks, v, w, fold,
                        static_cast<const int64_t*>(mix1),
@@ -148,24 +176,21 @@ int tpm_probe_sampled(const void* data, const void* bounds, const void* words,
       w < 1)
     return tpm::kBadArgs;
   const size_t smem = smem_bytes(p);
-  const auto* d = static_cast<const uint8_t*>(data);
   const auto* bd = static_cast<const int32_t*>(bounds);
   const auto* wd = static_cast<const uint32_t*>(words);
   auto* out = static_cast<int32_t*>(bits);
   auto* tot = static_cast<int32_t*>(total);
   auto s = static_cast<cudaStream_t>(stream);
-  if (w - 1 <= 16)
-    probe_sampled_kernel<16><<<grid_for(p), kBlockLanes, smem, s>>>(
-        d, bd, wd, out, tot, p, smem > 0);
+  if (sym16)
+    launch_sampled<uint16_t>(data, bd, wd, out, tot, p, smem, s);
   else
-    probe_sampled_kernel<128><<<grid_for(p), kBlockLanes, smem, s>>>(
-        d, bd, wd, out, tot, p, smem > 0);
+    launch_sampled<uint8_t>(data, bd, wd, out, tot, p, smem, s);
   return (int)cudaGetLastError();
 }
 
 int tpm_probe_strided(const void* data, const void* bounds, const void* words,
                       void* bits, void* total, int T, int C, int q,
-                      int stride, int kbanks, int v, int fold,
+                      int stride, int kbanks, int v, int fold, int sym16,
                       const void* mix1, const void* mix2, void* stream) {
   ProbeParams p;
   if (tpm::fill_params(p, T, C, q, stride, kbanks, v, 0, fold,
@@ -173,11 +198,15 @@ int tpm_probe_strided(const void* data, const void* bounds, const void* words,
                        static_cast<const int64_t*>(mix2)))
     return tpm::kBadArgs;
   const size_t smem = smem_bytes(p);
-  probe_strided_kernel<<<grid_for(p), kBlockLanes, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(bounds),
-      static_cast<const uint32_t*>(words), static_cast<int32_t*>(bits),
-      static_cast<int32_t*>(total), p, smem > 0);
+  const auto* bd = static_cast<const int32_t*>(bounds);
+  const auto* wd = static_cast<const uint32_t*>(words);
+  auto* out = static_cast<int32_t*>(bits);
+  auto* tot = static_cast<int32_t*>(total);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (sym16)
+    launch_strided<uint16_t>(data, bd, wd, out, tot, p, smem, s);
+  else
+    launch_strided<uint8_t>(data, bd, wd, out, tot, p, smem, s);
   return (int)cudaGetLastError();
 }
 
@@ -185,13 +214,13 @@ int tpm_probe_strided(const void* data, const void* bounds, const void* words,
 int tpm_probe_strided_packed(const void* data, const void* bounds,
                              const void* words, void* bits, void* total,
                              int T, int C, int q, int stride, int kbanks,
-                             int v, int fold, const void* mix1,
+                             int v, int fold, int sym16, const void* mix1,
                              const void* mix2, void* stream) {
   ProbeParams p;
   if (tpm::fill_params(p, T, C, q, stride, kbanks, v, 0, fold,
                        static_cast<const int64_t*>(mix1),
                        static_cast<const int64_t*>(mix2)) ||
-      stride % 4 || q > stride)
+      stride % 4 || q > stride || sym16)
     return tpm::kBadArgs;
   const size_t smem = smem_bytes(p);
   probe_strided_packed_kernel<<<grid_for(p), kBlockLanes, smem,

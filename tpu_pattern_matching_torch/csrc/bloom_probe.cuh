@@ -43,12 +43,15 @@ TPM_HD uint32_t fold_ascii(uint32_t c) {
 }
 
 // m1/m2 = sum_i sym[row+i] * mix{1,2}[i] (mod 2^32) over the gram starting
-// at `row` of `lane` in the time-major [T, C] byte array.
-TPM_HD void gram_hashes(const uint8_t* data, const ProbeParams& p, int row,
+// at `row` of `lane` in the time-major [T, C] symbol array. Sym is uint8_t
+// (bytes) or uint16_t (the ushort alphabet, symbols < 2048): a symbol is
+// widened to uint32_t, so the mixes are the same for both widths.
+template <typename Sym>
+TPM_HD void gram_hashes(const Sym* data, const ProbeParams& p, int row,
                         int lane, uint32_t& m1, uint32_t& m2) {
   m1 = 0u;
   m2 = 0u;
-  const uint8_t* col = data + (int64_t)row * p.C + lane;
+  const Sym* col = data + (int64_t)row * p.C + lane;
   for (int i = 0; i < p.q; ++i) {
     uint32_t s = col[(int64_t)i * p.C];
     if (p.fold) s = fold_ascii(s);
@@ -101,7 +104,8 @@ TPM_HD uint32_t pack_bit(uint32_t acc, bool hit, int b) {
 // >= w-1, the builder's rightmost-argmin rule (_winnow_grams). Rows
 // outside the lane's span hash to the sentinel, so padding contents never
 // matter. `hm` holds 32 + 2*(w-1) selection hashes (the caller sizes it).
-TPM_HD uint32_t sampled_word(const uint8_t* data, const uint32_t* words,
+template <typename Sym>
+TPM_HD uint32_t sampled_word(const Sym* data, const uint32_t* words,
                              const ProbeParams& p, int wrow, int lane,
                              int start, int end, uint32_t* hm) {
   const int ctx = p.w - 1;
@@ -135,7 +139,8 @@ TPM_HD uint32_t sampled_word(const uint8_t* data, const uint32_t* words,
 
 // One output word of the strided probe: the grams at rows
 // (32*wrow + j) * stride, j < 32, of `lane`.
-TPM_HD uint32_t strided_word(const uint8_t* data, const uint32_t* words,
+template <typename Sym>
+TPM_HD uint32_t strided_word(const Sym* data, const uint32_t* words,
                              const ProbeParams& p, int wrow, int lane,
                              int start, int end) {
   uint32_t acc = 0u;

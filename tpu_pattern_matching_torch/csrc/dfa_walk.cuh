@@ -7,6 +7,10 @@
 // table[state * A + sym] is the next state, negated iff that state is
 // final. It is int16 when the automaton has fewer than 2^15 states, int32
 // otherwise; an entry is widened to int32 before its sign is dropped.
+// Symbols are uint8 (A = 256) or uint16 (the ushort alphabet, A = 2048):
+// both walks are templates on the table type TT and the symbol type Sym.
+// The row offset state * A is 64-bit (a 2048-wide table of 2^20 states
+// has 2^31 entries).
 #pragma once
 
 #include <stdint.h>
@@ -26,10 +30,12 @@ constexpr int kWalkBadArgs = -1;  // entry-point code for rejected arguments
 
 // One step from `state` on `sym`: the state advances to |raw| only when
 // `valid`; the raw entry is returned, and raw < 0 means a match ends at
-// this symbol (the next state is final).
+// this symbol (the next state is final). A symbol past the alphabet reads
+// as A - 1 (the ushort parser's clamp), so no read leaves the table.
 template <typename TT>
 TPM_HD int32_t dfa_step(const TT* table, int A, int32_t& state, int32_t sym,
                         bool valid) {
+  if (sym >= A) sym = A - 1;
   const int32_t raw = (int32_t)table[(int64_t)state * A + sym];
   if (valid) state = raw < 0 ? -raw : raw;
   return raw;
@@ -65,8 +71,8 @@ struct WindowParams {
 // exactly one candidate. Slots at i >= n_valid (the sentinels of the
 // compaction) walk an empty span: no reports, state 0.
 // Writes rep[i, t] (0/1) and state[i, t] (after the step), row-major.
-template <typename TT>
-TPM_HD void window_walk(const TT* table, const uint8_t* data,
+template <typename TT, typename Sym>
+TPM_HD void window_walk(const TT* table, const Sym* data,
                         const int32_t* bounds, const int32_t* lane,
                         const int32_t* row, int64_t n_valid,
                         const WindowParams& p, int i, uint8_t* rep,
@@ -113,8 +119,8 @@ struct DenseParams {
 // final entry at t >= halo: counts[c] counts them all, the first R fill
 // slot_state/slot_pos[c, :] with (state, t - halo), and, when state_gid is
 // given, every report adds one to gcounts[state_gid[state]].
-template <typename TT>
-TPM_HD void dense_walk_lane(const TT* table, const uint8_t* data_tm,
+template <typename TT, typename Sym>
+TPM_HD void dense_walk_lane(const TT* table, const Sym* data_tm,
                             const int32_t* bounds, const int32_t* state_gid,
                             const DenseParams& p, int c, int32_t* counts,
                             int32_t* slot_state, int32_t* slot_pos,

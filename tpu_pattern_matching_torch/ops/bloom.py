@@ -12,14 +12,17 @@ The device half runs one batch:
 
 1. ``prep_time_major`` pads lanes to 128 and time to the tile height and
    transposes to time-major, so a warp's 32 threads (one lane each) read
-   32 adjacent bytes per row; its packed form (strided configs with
-   ``stride % 4 == 0``) transposes uint32 words of 4 bytes instead;
+   32 adjacent symbols per row — uint8 bytes, or uint16 tokens for the
+   ushort alphabet of 2048 (packet metadata); its packed form (strided
+   configs with ``stride % 4 == 0``, bytes only) transposes uint32 words
+   of 4 bytes instead;
 2. ``probe_bits`` writes the survivor bitmap ``[T/(32*stride), Cp]`` and
    its popcount: the hand-written CUDA kernels of ``csrc/`` for a CUDA
-   tensor (sampled, strided, packed strided), the plain PyTorch version
-   below for a CPU tensor;
+   tensor (sampled and strided at either symbol width, packed strided),
+   the plain PyTorch version below for a CPU tensor;
 3. ``hits_refined`` compacts the survivors, checks each against the exact
-   inserted gram set (ops/exact_gram.py) and scatters the members into a
+   inserted gram set (ops/exact_gram.py; 8-bit keys for bytes, 11-bit
+   for the ushort alphabet) and scatters the members into a
    fresh bitmap; past the ``k_ref`` capacity the unrefined bitmap passes
    through unchanged.
 
@@ -694,9 +697,10 @@ def packed_eligible(cfg: BloomConfig, dtype) -> bool:
 
 
 def prep_time_major(data, cfg: BloomConfig, packed: bool = False):
-    """Pad a lane-major ``[C, T]`` batch to ``[Cp, Tp]`` (lanes to 128,
-    time to ``cfg.tile_rows``) and transpose it: ``[Tp, Cp]`` contiguous,
-    zero padding. ``packed``: view each 4 bytes of a padded lane as one
+    """Pad a lane-major ``[C, T]`` batch of uint8 or uint16 symbols to
+    ``[Cp, Tp]`` (lanes to 128, time to ``cfg.tile_rows``) and transpose
+    it: ``[Tp, Cp]`` contiguous, same dtype, zero padding. ``packed``
+    (uint8 only): view each 4 bytes of a padded lane as one
     int32 (byte 0 is the low byte, as the reference's bitcast) and
     transpose the words: ``[Tp/4, Cp]`` int32. Returns ``(data_tm, Cp)``."""
     import torch
@@ -744,8 +748,9 @@ def pad_bounds(bounds, Cp: int):
 def probe_bits(data_tm, bounds, words, cfg: BloomConfig):
     """Survivor bitmap and popcount of one time-major batch.
 
-    ``data_tm``: ``[T, Cp]`` uint8, T a multiple of ``cfg.tile_rows``, Cp a
-    multiple of 128, or the packed ``[T/4, Cp]`` int32 of
+    ``data_tm``: ``[T, Cp]`` uint8 or uint16 (no ``fold_case``), T a
+    multiple of ``cfg.tile_rows``, Cp a multiple of 128, or the packed
+    ``[T/4, Cp]`` int32 of
     ``prep_time_major(packed=True)``; ``bounds``: ``[2, Cp]`` int32
     (start_t, end_t); ``words``: ``[k, v, 128]`` int32. Returns
     ``(bits [T/(32*stride), Cp] int32, total [1] int32)``.

@@ -268,11 +268,22 @@ class DeviceExact:
         )
 
 
+def gather_symbols(data_flat, idx):
+    """``data_flat[idx]`` as int64 symbols. uint16 symbols are gathered
+    through an int16 view (torch has no CUDA index kernel for uint16) and
+    masked back to 0..65535."""
+    import torch
+
+    if data_flat.dtype == torch.uint16:
+        return data_flat.view(torch.int16)[idx].to(torch.int64) & 0xFFFF
+    return data_flat[idx].to(torch.int64)
+
+
 def exact_member(dx: DeviceExact, data_flat, base, valid):
     """Is ``data_flat[base : base + q]`` an inserted gram? (torch port of
     the reference's traced ``exact_member``.)
 
-    ``data_flat``: [N] symbols (uint8 or int); ``base``: [K] integer flat
+    ``data_flat``: [N] symbols (uint8 or uint16); ``base``: [K] integer flat
     gram starts (clipped into range, like the reference's ``mode="clip"``
     gathers); ``valid``: [K] bool — sentinel slots come back False. All
     ops are fixed-shape gathers and elementwise math: no host sync."""
@@ -286,7 +297,7 @@ def exact_member(dx: DeviceExact, data_flat, base, valid):
     lo = torch.zeros(K, dtype=torch.int64, device=base.device)
     hi = torch.zeros_like(lo)
     for i in range(dx.q):
-        s = data_flat[(base + i).clamp(0, size - 1)].to(torch.int64)
+        s = gather_symbols(data_flat, (base + i).clamp(0, size - 1))
         if dx.fold_case:
             s = torch.where((s >= 65) & (s <= 90), s + 32, s)
         # symbol i at key bit bits*i of the pack_grams uint64, split into

@@ -5,13 +5,17 @@ kernel, bound with ``ctypes``:
 
 - ``bloom_probe.cu`` — the bloom probes. They replace the Pallas kernels of
   the reference's ``ops/bloom.py``, all launched by ``_probe_bits_jit``:
-  ``_make_sampled_kernel`` (sampled), the byte path of
+  ``_make_sampled_kernel`` (sampled), the unpacked path of
   ``_make_probe_kernel`` (strided) and its uint32-packed path
   (strided_packed).
 - ``dfa_walk.cu`` — the two DFA walks that the reference writes as XLA
   ``lax.scan`` loops: the windowed candidate walk of device verify
   (``ops/verify_device.py`` stage 3) and the dense engine's lane walk
   (``ops/match_xla.py``).
+
+Symbols are uint8 (bytes) or uint16 (the ushort alphabet of 2048, the
+packet-metadata path): every kernel but the packed probe has a build for
+each width, chosen by the symbol tensor's dtype.
 
 Each library is compiled with its own ``nvcc`` at first use into
 ``_build/`` (listed in ``.gitignore``) and rebuilt when a source is newer;
@@ -55,10 +59,12 @@ LIBRARIES = {
     "libtpm_walk_host.so": (("dfa_walk_host.cpp",), ("dfa_walk.cuh",)),
 }
 
-# Kernel launches per kernel; each launch_* function adds one per launch
-# and nothing else touches them (chip_smoke.py resets and reads them).
+# Kernel launches per kernel and symbol width (``_u16``: uint16 symbols);
+# each launch_* function adds one per launch and nothing else touches them
+# (chip_smoke.py resets and reads them).
 launches = {"sampled": 0, "strided": 0, "strided_packed": 0,
-            "window_walk": 0, "dense_walk": 0}
+            "window_walk": 0, "dense_walk": 0, "sampled_u16": 0,
+            "strided_u16": 0, "window_walk_u16": 0, "dense_walk_u16": 0}
 # The compiles of this process: library file -> {"seconds", "command", "log"}.
 builds: dict = {}
 
@@ -139,14 +145,14 @@ P, I = ctypes.c_void_p, ctypes.c_int
 def _bind_probe_cuda(lib) -> None:
     for fn in (lib.tpm_probe_sampled, lib.tpm_probe_strided,
                lib.tpm_probe_strided_packed):
-        fn.argtypes = [P] * 5 + [I] * 7 + [P] * 3
+        fn.argtypes = [P] * 5 + [I] * 8 + [P] * 3
         fn.restype = I
     lib.tpm_error_string.argtypes = [I]
     lib.tpm_error_string.restype = ctypes.c_char_p
 
 
 def _bind_probe_host(lib) -> None:
-    lib.tpm_probe_host.argtypes = [I] + [P] * 5 + [I] * 8 + [P] * 2
+    lib.tpm_probe_host.argtypes = [I] + [P] * 5 + [I] * 9 + [P] * 2
     lib.tpm_probe_host.restype = I
 
 
@@ -154,10 +160,10 @@ def _bind_walk(lib, stream: bool) -> None:
     suffix = "" if stream else "_host"
     tail = [P] if stream else []
     fn = getattr(lib, "tpm_window_walk" + suffix)
-    fn.argtypes = [P, I] + [P] * 5 + [I] * 8 + [P] * 2 + tail
+    fn.argtypes = [P, I, P, I] + [P] * 4 + [I] * 8 + [P] * 2 + tail
     fn.restype = I
     fn = getattr(lib, "tpm_dense_walk" + suffix)
-    fn.argtypes = [P, I] + [P] * 3 + [I] * 6 + [P] * 4 + tail
+    fn.argtypes = [P, I, P, I] + [P] * 2 + [I] * 6 + [P] * 4 + tail
     fn.restype = I
     if stream:
         lib.tpm_walk_error_string.argtypes = [I]
@@ -231,13 +237,23 @@ def _same_device(ref, **tensors) -> None:
 # ------------------------------------------------------------- the probes
 
 
-def _check(data_tm, bounds, words, cfg) -> tuple[int, int]:
-    """Validates a probe launch; returns (symbol rows T, lanes Cp). An
-    int32 ``data_tm`` is the packed layout ``[T/4, Cp]``."""
+def _sym16(t, name: str) -> int:
+    """1 for uint16 symbols, 0 for uint8; raises for any other dtype."""
+    if t.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"{name} must be uint8 or uint16 symbols, got "
+                         f"{t.dtype}")
+    return int(t.dtype == torch.uint16)
+
+
+def _check(data_tm, bounds, words, cfg) -> tuple[int, int, int]:
+    """Validates a probe launch; returns (symbol rows T, lanes Cp, sym16).
+    An int32 ``data_tm`` is the packed layout ``[T/4, Cp]`` of bytes."""
     packed = data_tm.dtype == torch.int32
-    if data_tm.dim() != 2 or data_tm.dtype not in (torch.uint8, torch.int32):
-        raise ValueError(f"data_tm must be 2-D uint8 (or int32 packed), got "
-                         f"{data_tm.dtype} {tuple(data_tm.shape)}")
+    if data_tm.dim() != 2:
+        raise ValueError(f"data_tm must be 2-D, got {tuple(data_tm.shape)}")
+    sym16 = 0 if packed else _sym16(data_tm, "data_tm")
+    if sym16 and cfg.fold_case:
+        raise ValueError("fold_case needs byte symbols, got uint16")
     if packed and (cfg.sampled or cfg.stride % 4 or cfg.q > cfg.stride):
         raise ValueError(f"packed int32 data_tm needs a strided config with "
                          f"stride % 4 == 0, got sampled={cfg.sampled} "
@@ -265,7 +281,7 @@ def _check(data_tm, bounds, words, cfg) -> tuple[int, int]:
                         or cfg.w + cfg.q - 2 > ctx):
         raise ValueError(f"unsupported sampled config stride={cfg.stride} "
                          f"w={cfg.w} q={cfg.q} (context rows <= {ctx})")
-    return T, Cp
+    return T, Cp, sym16
 
 
 def _mixes(cfg):
@@ -273,14 +289,18 @@ def _mixes(cfg):
 
 
 def probe_mode(data_tm, cfg) -> str:
-    if cfg.sampled:
-        return "sampled"
-    return "strided_packed" if data_tm.dtype == torch.int32 else "strided"
+    """The launch-count key of ``cfg``'s probe on ``data_tm``: sampled,
+    strided or strided_packed, with ``_u16`` for uint16 symbols."""
+    if data_tm.dtype == torch.int32:
+        return "strided_packed"
+    mode = "sampled" if cfg.sampled else "strided"
+    return mode + "_u16" if data_tm.dtype == torch.uint16 else mode
 
 
 def launch_probe(data_tm, bounds, words, cfg):
-    """Launch the probe kernel of ``cfg``'s mode on the current stream
-    (the packed strided kernel for an int32 ``data_tm``).
+    """Launch the probe kernel of ``cfg``'s mode and ``data_tm``'s symbol
+    width on the current stream (the packed strided kernel for an int32
+    ``data_tm``).
 
     Same contract as ``ops.bloom.probe_bits``; CUDA tensors only. Returns
     ``(bits [T/(32*stride), Cp] int32, total [1] int32)`` without
@@ -288,7 +308,7 @@ def launch_probe(data_tm, bounds, words, cfg):
     if not data_tm.is_cuda:
         raise ValueError(f"launch_probe needs CUDA tensors, got "
                          f"{data_tm.device}")
-    T, Cp = _check(data_tm, bounds, words, cfg)
+    T, Cp, sym16 = _check(data_tm, bounds, words, cfg)
     dev = data_tm.device
     lib = cuda_library()
     bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32,
@@ -298,21 +318,17 @@ def launch_probe(data_tm, bounds, words, cfg):
     ptrs = (data_tm.data_ptr(), bounds.data_ptr(), words.data_ptr(),
             bits.data_ptr(), total.data_ptr())
     mode = probe_mode(data_tm, cfg)
+    tail = (int(cfg.fold_case), sym16, mix1.ctypes.data, mix2.ctypes.data,
+            _stream(dev))
     with torch.cuda.device(dev):
-        if mode == "sampled":
-            rc = lib.tpm_probe_sampled(
-                *ptrs, T, Cp, cfg.q, cfg.kbanks, cfg.v, cfg.w,
-                int(cfg.fold_case), mix1.ctypes.data, mix2.ctypes.data,
-                _stream(dev),
-            )
+        if cfg.sampled:
+            rc = lib.tpm_probe_sampled(*ptrs, T, Cp, cfg.q, cfg.kbanks, cfg.v,
+                                       cfg.w, *tail)
         else:
             fn = (lib.tpm_probe_strided_packed if mode == "strided_packed"
                   else lib.tpm_probe_strided)
-            rc = fn(
-                *ptrs, T, Cp, cfg.q, cfg.stride, cfg.kbanks, cfg.v,
-                int(cfg.fold_case), mix1.ctypes.data, mix2.ctypes.data,
-                _stream(dev),
-            )
+            rc = fn(*ptrs, T, Cp, cfg.q, cfg.stride, cfg.kbanks, cfg.v,
+                    *tail)
     _raise_on(rc, f"{mode} probe", lib.tpm_error_string)
     launches[mode] += 1
     return bits, total
@@ -321,16 +337,15 @@ def launch_probe(data_tm, bounds, words, cfg):
 def probe_on_host(data_tm, bounds, words, cfg):
     """The kernels' own per-thread code run on the CPU (a test harness,
     not a kernel): CPU tensors in, ``(bits, total)`` CPU tensors out."""
-    T, Cp = _check(data_tm, bounds, words, cfg)
+    T, Cp, sym16 = _check(data_tm, bounds, words, cfg)
     bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32)
     total = torch.zeros(1, dtype=torch.int32)
     mix1, mix2 = _mixes(cfg)
-    mode = ("strided", "sampled", "strided_packed").index(
-        probe_mode(data_tm, cfg))
+    mode = (2 if data_tm.dtype == torch.int32 else int(cfg.sampled))
     rc = host_library().tpm_probe_host(
         mode, data_tm.data_ptr(), bounds.data_ptr(),
         words.data_ptr(), bits.data_ptr(), total.data_ptr(), T, Cp, cfg.q,
-        cfg.stride, cfg.kbanks, cfg.v, cfg.w, int(cfg.fold_case),
+        cfg.stride, cfg.kbanks, cfg.v, cfg.w, int(cfg.fold_case), sym16,
         mix1.ctypes.data, mix2.ctypes.data,
     )
     if rc:
@@ -363,9 +378,10 @@ def _window_args(table_flat, data_flat, bounds, lane, row, n_valid, *, C,
     """Validates a window-walk launch; returns (args before the outputs,
     rep, state) with the outputs allocated on the inputs' device."""
     t16 = _check_table(table_flat, alphabet_size)
-    if data_flat.dtype != torch.uint8 or tuple(data_flat.shape) != (C * T,):
-        raise ValueError(f"data_flat must be uint8 [{C * T}], got "
-                         f"{data_flat.dtype} {tuple(data_flat.shape)}")
+    sym16 = _sym16(data_flat, "data_flat")
+    if tuple(data_flat.shape) != (C * T,):
+        raise ValueError(f"data_flat must be [{C * T}], got "
+                         f"{tuple(data_flat.shape)}")
     _check_i32("bounds", bounds, (2, C))
     kw = lane.shape[0] if lane.dim() == 1 else -1
     _check_i32("lane", lane, (kw,))
@@ -377,7 +393,7 @@ def _window_args(table_flat, data_flat, bounds, lane, row, n_valid, *, C,
     dev = table_flat.device
     rep = torch.empty((kw, steps), dtype=torch.uint8, device=dev)
     state = torch.empty((kw, steps), dtype=torch.int32, device=dev)
-    args = (table_flat.data_ptr(), t16, data_flat.data_ptr(),
+    args = (table_flat.data_ptr(), t16, data_flat.data_ptr(), sym16,
             bounds.data_ptr(), lane.data_ptr(), row.data_ptr(),
             n_valid.data_ptr(), C, T, alphabet_size, q, lmax, halo, kw,
             steps, rep.data_ptr(), state.data_ptr())
@@ -387,8 +403,9 @@ def _window_args(table_flat, data_flat, bounds, lane, row, n_valid, *, C,
 def launch_window_walk(table_flat, data_flat, bounds, lane, row, n_valid,
                        **kw):
     """Launch the windowed candidate walk (``ops.verify_device.window_walk``
-    has the contract); CUDA tensors only. Returns ``(rep [kw, steps]
-    uint8, state [kw, steps] int32)`` without synchronising."""
+    has the contract) for ``data_flat``'s symbol width; CUDA tensors only.
+    Returns ``(rep [kw, steps] uint8, state [kw, steps] int32)`` without
+    synchronising."""
     if not table_flat.is_cuda:
         raise ValueError(f"launch_window_walk needs CUDA tensors, got "
                          f"{table_flat.device}")
@@ -401,7 +418,8 @@ def launch_window_walk(table_flat, data_flat, bounds, lane, row, n_valid,
     with torch.cuda.device(dev):
         rc = lib.tpm_window_walk(*args, _stream(dev))
     _raise_on(rc, "window walk", lib.tpm_walk_error_string)
-    launches["window_walk"] += 1
+    launches["window_walk_u16" if data_flat.dtype == torch.uint16
+             else "window_walk"] += 1
     return rep, state
 
 
@@ -418,9 +436,9 @@ def window_walk_on_host(table_flat, data_flat, bounds, lane, row, n_valid,
 def _dense_args(table_flat, data_tm, bounds, *, alphabet_size, halo,
                 max_results, state_gid=None, num_groups=0):
     t16 = _check_table(table_flat, alphabet_size)
-    if data_tm.dtype != torch.uint8 or data_tm.dim() != 2:
-        raise ValueError(f"data_tm must be 2-D uint8, got {data_tm.dtype} "
-                         f"{tuple(data_tm.shape)}")
+    sym16 = _sym16(data_tm, "data_tm")
+    if data_tm.dim() != 2:
+        raise ValueError(f"data_tm must be 2-D, got {tuple(data_tm.shape)}")
     T, C = data_tm.shape
     _check_i32("bounds", bounds, (2, C))
     tensors = dict(table_flat=table_flat, data_tm=data_tm, bounds=bounds)
@@ -435,7 +453,7 @@ def _dense_args(table_flat, data_tm, bounds, *, alphabet_size, halo,
     slot_pos = torch.zeros((C, R), dtype=torch.int32, device=dev)
     gcounts = (None if state_gid is None else
                torch.zeros(num_groups, dtype=torch.int32, device=dev))
-    args = (table_flat.data_ptr(), t16, data_tm.data_ptr(),
+    args = (table_flat.data_ptr(), t16, data_tm.data_ptr(), sym16,
             bounds.data_ptr(),
             None if state_gid is None else state_gid.data_ptr(),
             T, C, alphabet_size, halo, R, num_groups, counts.data_ptr(),
@@ -446,8 +464,9 @@ def _dense_args(table_flat, data_tm, bounds, *, alphabet_size, halo,
 
 def launch_dense_walk(table_flat, data_tm, bounds, **kw):
     """Launch the dense lane walk (``ops.match_xla.dense_walk`` has the
-    contract); CUDA tensors only. Returns ``(counts [C], slot_state [C, R],
-    slot_pos [C, R], gcounts [G] or None)`` without synchronising."""
+    contract) for ``data_tm``'s symbol width; CUDA tensors only. Returns
+    ``(counts [C], slot_state [C, R], slot_pos [C, R], gcounts [G] or
+    None)`` without synchronising."""
     if not table_flat.is_cuda:
         raise ValueError(f"launch_dense_walk needs CUDA tensors, got "
                          f"{table_flat.device}")
@@ -457,7 +476,8 @@ def launch_dense_walk(table_flat, data_tm, bounds, **kw):
     with torch.cuda.device(dev):
         rc = lib.tpm_dense_walk(*args, _stream(dev))
     _raise_on(rc, "dense walk", lib.tpm_walk_error_string)
-    launches["dense_walk"] += 1
+    launches["dense_walk_u16" if data_tm.dtype == torch.uint16
+             else "dense_walk"] += 1
     return outs
 
 

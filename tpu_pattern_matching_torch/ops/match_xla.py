@@ -52,7 +52,9 @@ class ScanResult:
 def dense_walk(table_flat, data_tm, bounds, *, alphabet_size: int,
                halo: int, max_results: int, state_gid=None,
                num_groups: int = 0):
-    """Walk every lane of the time-major batch ``data_tm [T, C]`` uint8.
+    """Walk every lane of the time-major batch ``data_tm [T, C]`` of uint8
+    or uint16 symbols (the ushort alphabet; a symbol past the alphabet
+    reads as ``A - 1``).
 
     ``table_flat``: ``[S*A]`` int16 or int32 signed table; ``bounds``:
     ``[2, C]`` int32 (start_t, end_t). Lane c starts in state 0 at t = 0;
@@ -97,8 +99,8 @@ def dense_walk_plain(table_flat, data_tm, bounds, *, alphabet_size: int,
     sl_pos = torch.zeros(C * R + 1, dtype=torch.int64, device=dev)
     gc = torch.zeros(G + 1, dtype=torch.int64, device=dev)
     for t in range(T):
-        raw = table_flat[state * alphabet_size
-                         + data_tm[t].to(torch.int64)].to(torch.int64)
+        sym = data_tm[t].to(torch.int64).clamp(max=alphabet_size - 1)
+        raw = table_flat[state * alphabet_size + sym].to(torch.int64)
         valid = (t >= start) & (t < end)
         state = torch.where(valid, raw.abs(), state)
         rep = (raw < 0) & valid & (t >= halo)
@@ -120,10 +122,11 @@ def scan_batch(table: DeviceTable, data, start_t, end_t, halo: int,
                max_results: int = 16) -> ScanResult:
     """Scan one batch of chunk lanes against the DFA.
 
-    ``data[c]`` (lane-major ``[C, halo + B]`` uint8) holds ``halo`` bytes of
-    stream history followed by the lane's own chunk bytes; ``end_t[c] =
-    halo + size[c]``. The batch is transposed once to time-major, so a
-    warp of the kernel reads 32 adjacent bytes per step."""
+    ``data[c]`` (lane-major ``[C, halo + B]`` uint8 or uint16) holds
+    ``halo`` symbols of stream history followed by the lane's own chunk;
+    ``end_t[c] = halo + size[c]``. The batch is transposed once to
+    time-major, so a warp of the kernel reads 32 adjacent symbols per
+    step."""
     counts, slot_state, slot_pos, _ = dense_walk(
         table.table_flat, data.t().contiguous(),
         torch.stack([start_t, end_t]).to(torch.int32),

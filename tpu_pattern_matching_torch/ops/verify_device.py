@@ -130,7 +130,8 @@ def window_walk(table_flat, data_flat, bounds, lane, row, n_valid, *, C: int,
     """Stage 3: walk every candidate slot's window from the root state.
 
     ``table_flat``: ``[S*A]`` int16 or int32 signed table; ``data_flat``:
-    the lane-major batch ``[C*T]`` uint8; ``bounds``: ``[2, C]`` int32;
+    the lane-major batch ``[C*T]`` uint8 or uint16 (symbols past the
+    alphabet read as ``A - 1``); ``bounds``: ``[2, C]`` int32;
     ``lane``/``row``: ``[kw]`` int32 candidates sorted by (lane, row), the
     slots at or past ``n_valid`` (one int64) being sentinels. Slot i walks
     ``walk_steps(lmax, q)`` steps from ``w0 = row - (lmax - q)``, reading
@@ -164,6 +165,8 @@ def window_walk_plain(table_flat, data_flat, bounds, lane, row, n_valid, *,
     step over all slots per window step, in int64 (no wraparound). Same
     contract as :func:`window_walk`; the CPU path, and what the kernel is
     held to on the card."""
+    from .exact_gram import gather_symbols
+
     kw = lane.shape[0]
     dev = lane.device
     cand_valid = torch.arange(kw, device=dev) < n_valid.reshape(())
@@ -185,7 +188,8 @@ def window_walk_plain(table_flat, data_flat, bounds, lane, row, n_valid, *,
     reps, states = [], []
     for t in range(steps):
         pos = w0 + t
-        sym = data_flat[(base + t).clamp(0, C * T - 1)].to(torch.int64)
+        sym = gather_symbols(data_flat, (base + t).clamp(0, C * T - 1))
+        sym = sym.clamp(max=alphabet_size - 1)
         raw = table_flat[state * alphabet_size + sym].to(torch.int64)
         valid = (pos >= st) & (pos < en)
         state = torch.where(valid, raw.abs(), state)
@@ -201,7 +205,8 @@ def verify_candidates(table_flat, state_gid, data, bounds, bits, dx=None, *,
                       k_walk: int | None = None):
     """The reference's ``_verify_kernel`` (stages 1-5) on one batch.
 
-    ``data [C, T]`` uint8 and ``bounds [2, C]`` are the batch the probe
+    ``data [C, T]`` (uint8, or uint16 for the ushort alphabet) and
+    ``bounds [2, C]`` are the batch the probe
     scanned, ``bits [W, Cb]`` its survivor bitmap; ``dx`` the exact-gram
     table (``ops/exact_gram.DeviceExact``) or None for no refinement.
     Returns device tensors ``(meta [5], packed [3, k_ev], gcounts [G])``:

@@ -19,8 +19,13 @@ Three single-device pipelines, as in the reference:
   (``ops/match_xla.py``, the dense-walk kernel) and the per-lane result
   slots compact into match tuples (``ops/compact.py``).
 
+Byte tables (alphabet 256) run on uint8 lanes; ushort tables (alphabet
+2048, packet metadata) on uint16 token lanes (``UshortBuffer``, which
+parses flow text), with 11-bit exact-gram keys, through the same three
+pipelines and the uint16 builds of the kernels.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue-1 item): pattern shards, meshes and the ushort alphabet.
+queue-1 item): pattern shards and meshes.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from tpu_pattern_matching.runtime.buffers import (
     DataBuffer,
     HostBatch,
     StreamState,
+    UshortBuffer,
 )
 from tpu_pattern_matching_torch.ops.bloom import BloomHits
 from tpu_pattern_matching_torch.ops.compact import (
@@ -109,8 +115,8 @@ class MatchSession:
         them), or "auto". The reference's "auto" is bloom for byte tables
         on a TPU (``on_tpu()``) and dense elsewhere; here the card plays
         the TPU's part, and "auto" is bloom for byte tables on any
-        device (the CPU runs the kernels' plain versions). Byte tables
-        are the only tables this package takes yet.
+        device (the CPU runs the kernels' plain versions) and dense for
+        ushort tables, as in the reference.
 
         ``verify`` (bloom engine; "n/a" for dense): "host" (native window
         walker on the CPU), "device" (window walk on the device: exact
@@ -138,14 +144,12 @@ class MatchSession:
             raise ValueError(f"unknown verify mode {verify!r}")
         if pat_shards < 1:
             raise ValueError(f"pat_shards must be >= 1, got {pat_shards}")
-        if table.alphabet_size != 256:
-            raise _not_ported("the ushort alphabet", "item 8")
         if pat_shards > 1:
             raise _not_ported("pat_shards > 1", "item 10")
         if mesh is not None:
             raise _not_ported("mesh=", "item 11")
         if engine == "auto":
-            engine = "bloom"
+            engine = "bloom" if table.alphabet_size == 256 else "dense"
         self.engine = engine
         self.verify_mode = (
             "host" if verify == "auto" else verify
@@ -219,6 +223,11 @@ class MatchSession:
     # ------------------------------------------------------------- plumbing
 
     def new_buffer(self) -> DataBuffer:
+        """A batch buffer of this session's symbol width: the byte
+        ``DataBuffer`` (binary or text) for byte tables, the token-parsing
+        ``UshortBuffer`` (flow text -> uint16 lanes) for ushort tables."""
+        if self.table.alphabet_size != 256:
+            return UshortBuffer(self.max_chunks, self.chunk_len, self.halo)
         return DataBuffer(self.max_chunks, self.chunk_len, self.halo)
 
     def scan(self, batch: HostBatch):
@@ -498,7 +507,9 @@ class MatchSession:
         self, data: bytes, text_mode: bool = False
     ) -> list[tuple[int, int]]:
         """All (end_offset, pattern_index) events in ``data``, sorted —
-        the simplest library entry point; equal to the CPU oracle's.
+        the simplest library entry point; equal to the CPU oracle's. For
+        ushort tables ``data`` is flow text (comma- or space-separated
+        tokens) and offsets count tokens.
 
         Raises if the dense engine's per-lane result slots overflow (raise
         ``max_results`` or use the bloom engine, which has no slot cap):
