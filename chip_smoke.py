@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (``tpu_pattern_matching_torch``).
 
-    python3 chip_smoke.py        # on a machine with one CUDA GPU
+    python3 chip_smoke.py   # on a machine with one CUDA GPU
 
 Phases (any failure exits non-zero at once):
 
 1. build    — compile both CUDA libraries of
               ``tpu_pattern_matching_torch/csrc/`` with nvcc for sm_90a, one
-              nvcc each, both at once;
+              nvcc each, both at once; print each kernel's ptxas line
+              (registers, stack, spills);
 2. kernels  — each kernel against its plain PyTorch version on the card,
               bit for bit, with the CUDA-event and host times per call of
-              the kernel and the CUDA-event time of the plain version: the
+              the kernel, the CUDA-event time of the plain version and the
+              launch's bound (``probe_bound``, ``walk_bound``): the
               sampled and strided probes on ragged random batches at the
-              bench shape [4096 lanes, 4112], the packed strided probe
-              (K3) on the same batch, and the dense lane walk on seeded
-              lanes at an int32 (10k patterns) and an int16 (3 patterns)
-              table;
+              bench shape [4096 lanes, 4112] (with each launch's tiling:
+              tiles, blocks, the dynamic shared memory opted into), the
+              packed strided probe (K3) on the same batch, both probes at
+              both widths on batches of one tile and of two lane tiles,
+              and the dense lane walk on seeded lanes at an int32 (10k
+              patterns) and an int16 (3 patterns) table;
 3. slice    — ``MatchSession(device="cuda")``, the default path: the bench
               workload (10,000 random 12-byte signatures, seed 42) over 64
               MiB of seeded random bytes with planted matches at 1e-3
@@ -54,23 +58,29 @@ Phases (any failure exits non-zero at once):
               set: its "Pattern ..." lines equal the oracle's events;
 9. sentiment — ``apps.sentiment.run_library_mode`` on a seeded word list:
               per-word counts equal the oracle's;
-10. trace   — torch.profiler traces: each kernel's device time per launch
-              (the summary's ``ms``), and the device time of the packed
+10. main inputs — the sampled and strided probes, at both widths, on the
+              main paths' own inputs kept from phases 3 and 7 (the fullest
+              batch of each), against the plain probe, timed, with bounds;
+11. trace   — torch.profiler traces: each kernel's device time per launch
+              (the summary's ``ms``) beside its bound and share, also on
+              the main paths' inputs, and the device time of the packed
               A/B's prep + probe per call;
-11. no jax  — the port never imported jax.
+12. no jax  — the port never imported jax nor the JAX package.
 
 Each of phases 3-9 sets every launch count to 0 before its path and reads
 them after it; each fails unless the kernels of its path were launched.
 Each of phases 7-9 prints its wall time.
 The last lines are the card's name and power limit, a JSON line with the
-per-kernel summary (every kernel at each symbol width), and ``{"ok":
-true, "device": {...}}``. Exits non-zero,
-printing no result, when there is no CUDA device.
+per-kernel summary (every kernel at each symbol width, with its bound,
+share and, for the probes, its numbers on the main path's inputs), and
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+when there is no CUDA device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -107,6 +117,7 @@ SIGS = ("40,32,287,32,106,196; 6; File scanner (metasploit file scanning)\n"
         "40,32,287,32,106,186,32; 7; Directory scanner\n"
         "5,5,5; 3; triple five\n")  # tests/test_ushort.py's fixture
 CLI_FILES = 16  # the byte CLI phase splits the 64 MiB stream into 16 files
+CUDA_LIBRARIES = ("libtpm_probe_cuda.so", "libtpm_walk_cuda.so")
 PROBE_SRC = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
 WALK_SRC = "tpu_pattern_matching_torch/csrc/dfa_walk.cu"
 KERNELS = {  # launch-count key: (summary name, __global__ function,
@@ -132,6 +143,63 @@ KERNELS = {  # launch-count key: (summary name, __global__ function,
     "dense_walk_u16": ("dfa_dense_walk_u16", "dense_walk_kernel", WALK_SRC,
                        "tpu_pattern_matching/ops/match_xla.py:69"),
 }
+
+
+# The card's peaks for the bounds (NVIDIA H100 SXM, data sheet): device
+# memory, and int32 operations (132 SMs x 64 INT32 lanes x 1.98 GHz).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations counted per unit of work (the least a kernel can do):
+BANK_OPS = 9  # a bank probed: h = m1 + b*m2; h ^= h >> 13 (2); the unit,
+#               word and bit fields (3); the word's address (2); the test
+SEL_OPS = 6  # a row's selection hash past its q multiply-adds (3) and its
+#              share of a sliding window minimum (3)
+WALK_OPS = 5  # a DFA step: the entry's index, the gather, the sign test,
+#               the state (abs), the report test
+
+
+def bound_of(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the int32 operations over their peak rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to
+                else "operations", bytes=int(nbytes), ops=int(ops))
+
+
+def probe_bound(torch, bloom, data_tm, bp, words, cfg) -> dict:
+    """The bound of one probe launch on its inputs: bytes = the symbol rows
+    the grams read, the bounds and the words once, the bitmap and total
+    written once; ops = (sampled) every row's selection hash, then per
+    tested row its gram hash (q multiply-adds for m2 when sampled, 2q when
+    strided) and BANK_OPS per bank probed until the first miss, counted on
+    these inputs."""
+    tested, m1, m2 = bloom.probe_tested(data_tm, bp, cfg)
+    alive, probes = tested, 0
+    for b in range(cfg.kbanks):
+        probes += int(alive.sum())
+        alive = alive & bloom.bank_hit(words, m1, m2, cfg, b)
+    del m1, m2
+    packed = data_tm.dtype == torch.int32
+    T, Cp = data_tm.shape[0] * (4 if packed else 1), data_tm.shape[1]
+    sym = 2 if data_tm.dtype == torch.uint16 else 1
+    rows = T if cfg.sampled else T // cfg.stride * min(cfg.q, cfg.stride)
+    nbytes = (rows * Cp * sym + bp.numel() * 4 + words.numel() * 4
+              + T // (32 * cfg.stride) * Cp * 4 + 4)
+    n_tested = int(tested.sum())
+    if cfg.sampled:
+        ops = T * Cp * (cfg.q + SEL_OPS) + n_tested * cfg.q
+    else:
+        ops = n_tested * 2 * cfg.q
+    return dict(bound_of(nbytes, ops + probes * BANK_OPS), tested=n_tested,
+                bank_probes=probes)
+
+
+def walk_bound(steps: int, sym: int, out_bytes: int) -> dict:
+    """The bound of a DFA walk of ``steps`` steps: each symbol read once,
+    the outputs written once, WALK_OPS per step; the table's entries are
+    gathers that the caches serve (not counted)."""
+    return bound_of(steps * sym + out_bytes, steps * WALK_OPS)
 
 
 def fail(msg: str) -> None:
@@ -175,17 +243,22 @@ def host_ms(torch, fn, n: int) -> float:
 
 
 def timed(torch, fn, plain, n: int, n_plain: int, err: int,
-          card_line: str) -> tuple[dict, str]:
+          card_line: str, bound: dict) -> tuple[dict, str]:
     """The CUDA-event and host times per call of a kernel and the
-    CUDA-event time of its plain version, for the summary and a print
-    line; ``fn`` is kept for the trace phase, which adds the device
-    time."""
+    CUDA-event time of its plain version, with the launch's ``bound``,
+    for the summary and a print line; ``fn`` is kept for the trace phase,
+    which adds the device time."""
     t = dict(event_ms=cuda_ms(torch, fn, n), host_ms=host_ms(torch, fn, n),
              plain_ms=cuda_ms(torch, plain, n_plain), max_abs_err=err,
-             fn=fn)
+             fn=fn, **bound)
     return t, (f"; kernel {t['event_ms']:.4f} ms per call by CUDA events "
                f"over {n} calls, {t['host_ms']:.4f} ms host per call; plain "
-               f"{t['plain_ms']:.4f} ms ({card_line})")
+               f"{t['plain_ms']:.4f} ms; {bound_text(bound)} ({card_line})")
+
+
+def bound_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.6f} ms by {b['bound_by']} ({b['bytes']} "
+            f"B, {b['ops']} int32 ops)")
 
 
 def trace_ms(torch, fn, fn_name=None, n: int = 100) -> tuple[float, int]:
@@ -212,9 +285,10 @@ def trace_ms(torch, fn, fn_name=None, n: int = 100) -> tuple[float, int]:
     return us / 1e3 / (count if fn_name else n), count
 
 
-def phase_trace(torch, times, ab_fns, card_line: str) -> None:
-    """Device times from torch.profiler traces: each kernel's per launch,
-    and the packed A/B's per call (every kernel of prep + probe). Runs
+def phase_trace(torch, times, main, ab_fns, card_line: str) -> None:
+    """Device times from torch.profiler traces: each kernel's per launch
+    (also on the main path's inputs, ``main``), and the packed A/B's per
+    call (every kernel of prep + probe). Runs
     last, so that the profiler's set-up and hooks cannot touch the
     host-bound times taken before it."""
     for key, t in times.items():
@@ -222,7 +296,14 @@ def phase_trace(torch, times, ab_fns, card_line: str) -> None:
         print(f"[trace] {key:14s} {t['ms']:.4f} ms device time per launch "
               f"({count} launches traced of 100 calls); {t['event_ms']:.4f} "
               f"ms per call by CUDA events, {t['host_ms']:.4f} ms host per "
-              f"call ({card_line})", flush=True)
+              f"call; {bound_text(t)}, share {t['bound_ms'] / t['ms']:.4f} "
+              f"({card_line})", flush=True)
+    for key, t in main.items():
+        t["ms"], count = trace_ms(torch, t.pop("fn"), KERNELS[key][1])
+        print(f"[trace] {key:14s} on the main path's inputs ({t['label']}): "
+              f"{t['ms']:.4f} ms device time per launch ({count} launches "
+              f"traced of 100 calls); {bound_text(t)}, share "
+              f"{t['bound_ms'] / t['ms']:.4f} ({card_line})", flush=True)
     ab = [trace_ms(torch, ab_fns[packed])[0] for packed in AB]
     print(f"[trace] packed A/B, device time of prep + probe per call: byte "
           f"path {ab[0]:.4f}, {ab[3]:.4f} ms, packed path {ab[1]:.4f}, "
@@ -259,21 +340,47 @@ def read_launches(kernels, label: str, needed) -> dict:
 
 
 def phase_build(kernels, card_line: str) -> None:
+    for name in CUDA_LIBRARIES:  # every run builds from the sources
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(kernels.BUILD_DIR, name))
     t0 = time.perf_counter()
     kernels.build_all()
     secs = time.perf_counter() - t0
-    for name in ("libtpm_probe_cuda.so", "libtpm_walk_cuda.so"):
+    for name in CUDA_LIBRARIES:
         b = kernels.builds.get(name)
         if not b:
             fail(f"{name} was not built by this run")
         cmd = " ".join(os.path.relpath(c, HERE) if c.startswith(HERE)
                        else os.path.basename(c) for c in b["command"])
-        ptxas = [ln.split(":", 1)[-1].strip() for ln in b["log"].splitlines()
-                 if "entry function" in ln or "registers" in ln
-                 or "spill" in ln]
-        print(f"[build] {cmd}: {b['seconds']:.2f} s on {card_line}; ptxas: "
-              f"{' | '.join(ptxas)}", flush=True)
+        print(f"[build] {cmd}: {b['seconds']:.2f} s on {card_line}",
+              flush=True)
+        for kernel, info in ptxas_lines(b["log"]):
+            print(f"[build] ptxas {kernel}: {info}", flush=True)
     print(f"[build] both libraries in {secs:.2f} s (parallel)", flush=True)
+
+
+KERNEL_NAME = re.compile(r"(probe_\w+?_kernel|\w+_walk_kernel)I?([ht]?)")
+
+
+def ptxas_lines(log: str) -> list:
+    """(kernel, its ptxas registers / shared memory / spill line) of each
+    entry function in an nvcc -Xptxas -v log; ``<u8>``/``<u16>`` mark the
+    symbol width of a template instance (the dynamic shared memory a
+    launch opts into is not in it: see the plans printed by the kernels
+    phases)."""
+    out, name, info = [], None, []
+    for ln in log.splitlines() + ["Compiling entry function 'end'"]:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            if name:
+                k = KERNEL_NAME.search(name)
+                width = {"h": "<u8>", "t": "<u16>"}.get(k.group(2), "")
+                out.append((k.group(1) + width if k else name,
+                            "; ".join(info)))
+            name, info = m.group(1), []
+        elif name and ("spill" in ln or "Used" in ln):
+            info.append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def random_cfg(bloom, mode, q, sw, k, v, fold, seed):
@@ -314,8 +421,11 @@ def check_probes(torch, bloom, kernels, data, bounds, configs, timed_modes,
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(99 + seed0)
     times = {}
-    for i, (label, mode, q, sw, k, v, fold, packed) in enumerate(configs):
+    for i, (label, mode, q, sw, k, v, fold, packed, *gt) in enumerate(
+            configs):
         cfg = random_cfg(bloom, mode, q, sw, k, v, fold, seed=seed0 + i)
+        if gt:  # a tile height of its own (the one-tile configs)
+            cfg = dataclasses.replace(cfg, gt=gt[0])
         # random words: ~half the bits set, so a large share of tested
         # rows survives and every bank decision is compared
         words = torch.from_numpy(
@@ -337,6 +447,8 @@ def check_probes(torch, bloom, kernels, data, bounds, configs, timed_modes,
                 f"{' fold' if fold else ''} {data_tm.dtype} "
                 f"[{data_tm.shape[0]}, {Cp}]: bits and total equal, "
                 f"tolerance 0 ({int(kt[0])} survivors)")
+        if not packed:
+            line += f"; {plan_text(kernels.probe_plan(data_tm, cfg))}"
         if label in timed_modes:
             times[kind], text = timed(
                 torch,
@@ -344,10 +456,20 @@ def check_probes(torch, bloom, kernels, data, bounds, configs, timed_modes,
                                   cfg),
                 functools.partial(bloom.probe_bits_plain, data_tm, bp, words,
                                   cfg),
-                50, 3, err, card_line)
+                50, 3, err, card_line,
+                probe_bound(torch, bloom, data_tm, bp, words, cfg))
+            times[kind]["args"] = (data_tm, bp, words, cfg)
             line += text
         print(line, flush=True)
     return times
+
+
+def plan_text(plan: dict) -> str:
+    return (f"tiles of {plan['words']} words x {plan['lanes']} lanes, "
+            f"{plan['tiles']} tiles on {plan['blocks']} blocks of "
+            f"{plan['threads']} threads, {plan['smem_bytes']} B of dynamic "
+            f"shared memory opted into, bank words in "
+            f"{'shared memory' if plan['words_in_smem'] else 'L2'}")
 
 
 def phase_probes(torch, bloom, kernels, card_line) -> dict:
@@ -360,8 +482,12 @@ def phase_probes(torch, bloom, kernels, card_line) -> dict:
         ("v=256 (global words)", "sampled", 4, 9, 6, 256, False, False),
         ("w=20 (wide context)", "sampled", 4, 20, 6, 8, False, False),
         ("nocase", "sampled", 4, 9, 6, 8, True, False),
+        ("w=1", "sampled", 2, 1, 3, 4, False, False),
+        ("q=8", "sampled", 8, 9, 6, 8, False, False),
         ("strided", "strided", 4, 4, 6, 16, False, False),
         ("strided nocase k>8", "strided", 3, 5, 10, 4, True, False),
+        ("strided q=1", "strided", 1, 2, 3, 4, False, False),
+        ("strided q=8 v=256", "strided", 8, 8, 4, 256, False, False),
         ("packed s4", "strided", 4, 4, 6, 16, False, True),
         ("packed s8 nocase k>8", "strided", 4, 8, 10, 4, True, True),
         ("packed s12 q6 v=256", "strided", 6, 12, 6, 256, False, True),
@@ -382,10 +508,36 @@ def phase_probes_u16(torch, bloom, kernels, card_line) -> dict:
         ("2000-signature pick", "strided", 3, 4, 6, 8, False, False),
         ("fixture pick", "strided", 2, 2, 2, 1, False, False),
         ("strided v=256", "strided", 3, 8, 8, 256, False, False),
+        ("sampled q=8 w=20", "sampled", 8, 20, 4, 8, False, False),
     ]
     return check_probes(torch, bloom, kernels, data, bounds, configs,
                         ("30k-signature pick", "2000-signature pick"), 100,
                         card_line)
+
+
+def phase_probe_edges(torch, bloom, kernels, card_line) -> None:
+    """K1 and K2 at both widths on batches of one tile (T of one tile,
+    Cp = 128; gt 64 sampled, 32 strided) and of two lane tiles with spans
+    that end inside tiles, bit for bit."""
+    for n_sym, seed in ((256, 500), (2048, 600)):
+        for C, T, gt in ((100, 60, True), (250, 250, False)):
+            rng = np.random.RandomState(seed + C)
+            dt = np.uint8 if n_sym == 256 else np.uint16
+            data = rng.randint(0, n_sym, size=(C, T)).astype(dt)
+            start = rng.randint(0, 20, size=C).astype(np.int32)
+            end = rng.randint(T // 3, T + 1, size=C).astype(np.int32)
+            end[::9] = start[::9]  # empty lanes
+            dev = torch.device(DEVICE)
+            configs = [  # (label, mode, q, stride|w, k, v, fold, packed, gt)
+                ("one tile" if gt else "two lane tiles", "sampled", 3, 4, 8,
+                 32, False, False, 64 if gt else 128),
+                ("one tile" if gt else "two lane tiles", "strided", 3, 4, 6,
+                 8, False, False, 32 if gt else bloom.GT),
+            ]
+            check_probes(torch, bloom, kernels,
+                         torch.from_numpy(data).to(dev),
+                         torch.from_numpy(np.stack([start, end])).to(dev),
+                         configs, (), seed, card_line)
 
 
 def plant(rng, pats, size, density):
@@ -443,10 +595,27 @@ def check_dense_walk(torch, kernels, table_flat, data_tm, bounds, dkw,
                               bounds, **dkw),
             functools.partial(match_xla.dense_walk_plain, table_flat,
                               data_tm, bounds, **dkw),
-            10, 1, err, card_line)
+            10, 1, err, card_line, dense_bound(torch, data_tm, bounds, dkw))
         line += text
     print(line, flush=True)
     return times
+
+
+def dense_bound(torch, data_tm, bounds, dkw) -> dict:
+    """W1's bound: a step per symbol of each lane's span; outputs: the
+    counts, R slots of (state, position) and the group counts."""
+    C = data_tm.shape[1]
+    steps = int((bounds[1].to(torch.int64) - bounds[0]).clamp(min=0).sum())
+    out = C * 4 + 2 * C * dkw["max_results"] * 4 + dkw["num_groups"] * 4
+    return walk_bound(steps, data_tm.element_size(), out + bounds.numel() * 4)
+
+
+def window_bound(args, kw) -> dict:
+    """W2's bound: ``steps`` steps for each live slot; inputs lane and row
+    per slot; outputs rep (uint8) and state (int32) per slot and step."""
+    live, slots = int(args[5][0]), args[3].shape[0]
+    return walk_bound(live * kw["steps"], args[1].element_size(),
+                      slots * 8 + slots * kw["steps"] * 5)
 
 
 def phase_dense_walk(torch, kernels, workloads, card_line: str) -> dict:
@@ -500,7 +669,7 @@ def phase_dense_walk_u16(torch, kernels, ush, card_line: str) -> dict:
 
 
 def oracle_events(pats, data: bytes):
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from tpu_pattern_matching_torch.core.oracle_native import NativeOracle
 
     off, pid, total = NativeOracle(pats).match(data, cap=1 << 22)
     if total > len(off):
@@ -509,7 +678,7 @@ def oracle_events(pats, data: bytes):
 
 
 def make_workloads() -> list:
-    from tpu_pattern_matching.core.dfa import compile_patterns
+    from tpu_pattern_matching_torch.core.dfa import compile_patterns
 
     rng = np.random.RandomState(42)  # bench.py's workload
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
@@ -558,10 +727,35 @@ def session(MatchSession, w, **kw):
                         chunk_len=CHUNK_LEN, device=DEVICE, **kw)
 
 
-def phase_slice(torch, kernels, MatchSession, workloads, card_line) -> dict:
-    """The default path (bloom + host verify) on both workloads."""
+@contextlib.contextmanager
+def keep_probe_inputs(kernels, store: dict):
+    """Keep the inputs of the probe launch of each kind (launch count key)
+    with the most rows inside its lanes' spans made inside the block: the
+    main path's own inputs at their fullest batch. It syncs at every
+    launch, so it wraps only untimed runs made after the timed ones."""
+    launch = kernels.launch_probe
+
+    def keep(data_tm, bounds, words, cfg):
+        key = kernels.probe_mode(data_tm, cfg)
+        live = int((bounds[1] - bounds[0]).clamp(min=0).sum())
+        if key not in store or live > store[key][0]:
+            store[key] = (live, (data_tm, bounds, words, cfg))  # fresh
+        return launch(data_tm, bounds, words, cfg)
+
+    kernels.launch_probe = keep
+    try:
+        yield
+    finally:
+        kernels.launch_probe = launch
+
+
+def phase_slice(torch, kernels, MatchSession, workloads, probe_inputs,
+                card_line) -> dict:
+    """The default path (bloom + host verify) on both workloads; then one
+    more, untimed find of each keeps its probes' inputs in
+    ``probe_inputs``."""
     reset(kernels)
-    modes = []
+    modes, sessions = [], []
     for w in workloads:
         t0 = time.perf_counter()
         sess = session(MatchSession, w)
@@ -569,6 +763,7 @@ def phase_slice(torch, kernels, MatchSession, workloads, card_line) -> dict:
         cfg = sess.bloom_table.cfg
         w["bloom_table"] = sess.bloom_table  # for the CLI phase
         rate = timed_find(torch, sess, w, "slice")
+        sessions.append(sess)
         modes.append("sampled" if cfg.sampled else "strided")
         print(f"[slice] {w['label']}, {w['n_planted']} planted: "
               f"{cfg_name(cfg)} k_ref {sess._bloom.k_ref}, filter build "
@@ -578,7 +773,11 @@ def phase_slice(torch, kernels, MatchSession, workloads, card_line) -> dict:
               f"{sess.refine_overflows}", flush=True)
     if sorted(modes) != ["sampled", "strided"]:
         fail(f"[slice] the two sessions picked {modes}, not both modes")
-    return read_launches(kernels, "slice", ("sampled", "strided"))
+    launches = read_launches(kernels, "slice", ("sampled", "strided"))
+    with keep_probe_inputs(kernels, probe_inputs):
+        for sess, w in zip(sessions, workloads):
+            sess.find(w["data"])
+    return launches
 
 
 def phase_packed(torch, bloom, kernels, card_line) -> tuple[dict, dict]:
@@ -628,7 +827,7 @@ def oracle_group_counts(sess, want) -> tuple[int, np.ndarray]:
 
 
 def stream_counts(sess, data: bytes):
-    from tpu_pattern_matching.runtime.buffers import StreamState
+    from tpu_pattern_matching_torch.runtime.buffers import StreamState
 
     buf = sess.new_buffer()
     fobj = io.BytesIO(data)
@@ -727,7 +926,7 @@ def phase_window_walk(torch, kernels, walks, timed_label, card_line) -> dict:
                 functools.partial(kernels.launch_window_walk, *args, **kw),
                 functools.partial(verify_device.window_walk_plain, *args,
                                   **kw),
-                500, 5, err, card_line)
+                500, 5, err, card_line, window_bound(args, kw))
             line += text
         print(line, flush=True)
     if not times:
@@ -774,7 +973,7 @@ def make_ushort_workload(tmp) -> dict:
     """2,000 seeded signatures of 6-16 tokens and 64 flow files of 8 M
     tokens in all, written under ``tmp``, with the native oracle's events
     as (file, start offset, pattern id)."""
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from tpu_pattern_matching_torch.core.oracle_native import NativeOracle
     from tpu_pattern_matching_torch.ushort import compile_signatures
 
     rng = np.random.RandomState(2000)
@@ -845,11 +1044,13 @@ def check_events(label, got, want) -> None:
              f"{sorted(want - got)[:3]}")
 
 
-def phase_ushort(torch, kernels, ush, card_line):
+def phase_ushort(torch, kernels, ush, probe_inputs, card_line):
     """The packet-metadata path through the CLI on each engine and a
     sampled library session; returns the launch counts and the inputs of
-    the device-verify run's largest uint16 window walk."""
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    the device-verify run's largest uint16 window walk. Then the bloom CLI
+    run and one find of the sampled session again, untimed, keep the
+    probes' inputs in ``probe_inputs``."""
+    from tpu_pattern_matching_torch.core.oracle_native import NativeOracle
     from tpu_pattern_matching_torch.cli import main as cli_main
     from tpu_pattern_matching_torch.runtime.session import MatchSession
 
@@ -901,6 +1102,7 @@ def phase_ushort(torch, kernels, ush, card_line):
         with open(path, "rb") as f:
             for e, p in sess.find(f.read()):
                 got.add((path, e - len(ush["sigs"][p]) + 1, p))
+    last_flow = path
     check_events("ushort sampled", got, ush["want"])
     if kernels.launches["sampled_u16"] == before:
         fail("[ushort] the sampled session never launched sampled_u16")
@@ -941,7 +1143,55 @@ def phase_ushort(torch, kernels, ush, card_line):
                               "dense_walk_u16"))
     print(f"[ushort] phase wall time {time.perf_counter() - t_phase:.2f} s",
           flush=True)
+    with keep_probe_inputs(kernels, probe_inputs):
+        run_cli(cli_main, base + runs[0][1], USHORT_LINE)
+        with open(last_flow, "rb") as f:
+            sess.find(f.read())
     return launches, walks
+
+
+def phase_main_probes(torch, bloom, kernels, inputs, card_line) -> dict:
+    """K1 and K2 at both widths on the main paths' own inputs, kept from
+    their runs: each against the plain probe, bit for bit, timed, with
+    its bound. The sampled uint16 filter (the forced 30,000-signature
+    pick) is probed on the ushort CLI's own batch."""
+    inputs = {k: args for k, (_live, args) in inputs.items()}
+    u16 = inputs["strided_u16"]
+    cases = [
+        ("sampled", "the 10k x 12 B bench filter on a batch of the 64 MiB "
+         "stream", inputs["sampled"]),
+        ("strided", "the 3-pattern set's filter on a batch of its stream",
+         inputs["strided"]),
+        ("strided_u16", "the 2,000-signature filter on the ushort CLI's "
+         "batch", u16),
+        ("sampled_u16", "the forced 30k-signature pick's filter on the "
+         "ushort CLI's batch", (u16[0], u16[1], *inputs["sampled_u16"][2:])),
+    ]
+    main = {}
+    for key, label, (data_tm, bp, words, cfg) in cases:
+        kb, kt = kernels.launch_probe(data_tm, bp, words, cfg)
+        torch.cuda.synchronize()
+        pb, pt = bloom.probe_bits_plain(data_tm, bp, words, cfg)
+        err = max_abs_err(torch, (kb, kt), (pb, pt))
+        if err or int(kt[0]) != int(pt[0]):
+            fail(f"[main inputs] {key} on {label}: kernel differs from "
+                 f"plain (max_abs_err {err})")
+        bound = probe_bound(torch, bloom, data_tm, bp, words, cfg)
+        main[key], text = timed(
+            torch,
+            functools.partial(kernels.launch_probe, data_tm, bp, words, cfg),
+            functools.partial(bloom.probe_bits_plain, data_tm, bp, words,
+                              cfg),
+            50, 3, err, card_line, bound)
+        main[key].update(label=label, args=(data_tm, bp, words, cfg),
+                         config=cfg_name(cfg), shape=list(data_tm.shape))
+        print(f"[main inputs] {key:14s} {cfg_name(cfg)} {data_tm.dtype} "
+              f"[{data_tm.shape[0]}, {data_tm.shape[1]}], {label}: bits and "
+              f"total equal, tolerance 0 ({int(kt[0])} survivors of "
+              f"{bound['tested']} tested rows, {bound['bank_probes']} bank "
+              f"probes); {plan_text(kernels.probe_plan(data_tm, cfg))}"
+              f"{text}", flush=True)
+    return main
 
 
 def phase_cli(torch, kernels, workloads, tmp, card_line) -> dict:
@@ -1006,7 +1256,7 @@ def phase_cli(torch, kernels, workloads, tmp, card_line) -> dict:
 def phase_sentiment(torch, kernels, tmp, card_line) -> None:
     """``run_library_mode`` of the port's sentiment app on a seeded word
     list: the per-word counts equal the native oracle's."""
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from tpu_pattern_matching_torch.core.oracle_native import NativeOracle
     from tpu_pattern_matching_torch.apps import sentiment
 
     t_phase = time.perf_counter()
@@ -1080,13 +1330,15 @@ def main() -> None:
     phase_build(kernels, card_line)
     times = phase_probes(torch, bloom, kernels, card_line)
     times.update(phase_probes_u16(torch, bloom, kernels, card_line))
+    phase_probe_edges(torch, bloom, kernels, card_line)
     workloads = make_workloads()
     times.update(phase_dense_walk(torch, kernels, workloads, card_line))
+    probe_inputs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke.") as tmp:
         ush = make_ushort_workload(tmp)
         times.update(phase_dense_walk_u16(torch, kernels, ush, card_line))
         launches = phase_slice(torch, kernels, MatchSession, workloads,
-                               card_line)
+                               probe_inputs, card_line)
         packed_launches, ab_fns = phase_packed(torch, bloom, kernels,
                                                card_line)
         launches["strided_packed"] = packed_launches["strided_packed"]
@@ -1097,23 +1349,37 @@ def main() -> None:
                                        "bench workload", card_line))
         launches["dense_walk"] = phase_dense(
             torch, kernels, MatchSession, workloads, card_line)["dense_walk"]
-        u16_launches, u16_walks = phase_ushort(torch, kernels, ush, card_line)
+        u16_launches, u16_walks = phase_ushort(torch, kernels, ush,
+                                               probe_inputs, card_line)
         for key in ("sampled_u16", "strided_u16", "window_walk_u16",
                     "dense_walk_u16"):
             launches[key] = u16_launches[key]
         times.update(phase_window_walk(torch, kernels, u16_walks, "ushort",
                                        card_line))
+        main_times = phase_main_probes(torch, bloom, kernels, probe_inputs,
+                                       card_line)
         phase_cli(torch, kernels, workloads, tmp, card_line)
         phase_sentiment(torch, kernels, tmp, card_line)
-    phase_trace(torch, times, ab_fns, card_line)
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    print("[no jax] 'jax' not in sys.modules", flush=True)
+    phase_trace(torch, times, main_times, ab_fns, card_line)
+    imported = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "tpu_pattern_matching")]
+    if imported:
+        fail(f"imported {imported}")
+    print("[no jax] neither jax nor the JAX package (tpu_pattern_matching) "
+          "is in sys.modules", flush=True)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key],
          "max_abs_err": times[key]["max_abs_err"], "ms": times[key]["ms"],
-         "plain_ms": times[key]["plain_ms"]}
+         "plain_ms": times[key]["plain_ms"],
+         "bound_ms": times[key]["bound_ms"],
+         "bound_by": times[key]["bound_by"],
+         "share": times[key]["bound_ms"] / times[key]["ms"],
+         "library_ms": None,  # no PyTorch call probes a bloom or walks a DFA
+         **({"main_path": {
+             k: main_times[key][k] for k in (
+                 "label", "config", "shape", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms", "bound_by")}} if key in main_times else {})}
         for key, (name, _fn, src, rep) in KERNELS.items()
     ]}
     print(card_line)

@@ -7,15 +7,18 @@ tests/conftest.py from importing it):
     TPM_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 The kernels' outputs are integers: they must equal the plain PyTorch
-versions bit for bit (tolerance 0). This file imports no jax.
+versions bit for bit (tolerance 0). This file imports no jax and nothing
+of the JAX package.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle_native import NativeOracle
+from tpu_pattern_matching_torch.core.dfa import compile_patterns
+from tpu_pattern_matching_torch.core.oracle_native import NativeOracle
 from tpu_pattern_matching_torch.ops import bloom, kernels
 from tpu_pattern_matching_torch.runtime.session import MatchSession
 
@@ -286,8 +289,49 @@ def test_u16_probe_kernel_equals_plain(cuda, spec):
     assert int(k_total[0]) == int(p_total[0]) > 0
 
 
+TILE_EDGES = [  # (symbols, mode, q, stride|w, k, v, lanes, rows, gt)
+    ("u16", "sampled", 3, 4, 8, 32, 4096, 2064, 128),  # 128 KB opt-in
+    ("u8", "sampled", 4, 9, 6, 8, 100, 60, 64),  # one tile, Cp = 128
+    ("u16", "sampled", 3, 4, 8, 32, 100, 60, 64),
+    ("u8", "strided", 4, 4, 6, 16, 100, 120, 32),  # one tile, Cp = 128
+    ("u16", "strided", 3, 4, 6, 8, 128, 120, 32),
+    ("u8", "sampled", 8, 20, 3, 256, 300, 1000, 128),  # v = 256: L2 words
+    ("u16", "strided", 1, 2, 2, 256, 300, 1000, 64),
+    ("u8", "sampled", 1, 1, 2, 4, 300, 1000, 128),  # q = 1, w = 1
+]
+
+
+@pytest.mark.parametrize(
+    "spec", TILE_EDGES, ids=["-".join(map(str, s)) for s in TILE_EDGES])
+def test_probe_kernel_tile_edges_equal_plain(cuda, spec):
+    # the tiled kernels at the edges of their tiling: the shared-memory
+    # opt-in, a grid of one tile, words read through L2, q and w of 1
+    width, mode, q, sw, k, v, C, T, gt = spec
+    cfg = dataclasses.replace(make_cfg(mode, q, sw, k, v, seed=31), gt=gt)
+    rng = np.random.RandomState(32)
+    n_sym, dtype = (2048, np.uint16) if width == "u16" else (256, np.uint8)
+    data = rng.randint(0, n_sym, size=(C, T)).astype(dtype)
+    start = rng.randint(0, 20, size=C).astype(np.int32)
+    end = rng.randint(T // 2, T + 1, size=C).astype(np.int32)  # mid-tile
+    end[::13] = start[::13]
+    w = torch.from_numpy(rng.randint(-(2**31), 2**31, size=(
+        k, v, 128)).astype(np.int32)).to(cuda)
+    data_tm, Cp = bloom.prep_time_major(torch.from_numpy(data).to(cuda), cfg)
+    bp = bloom.pad_bounds(torch.from_numpy(np.stack([start, end])).to(cuda),
+                          Cp)
+    plan = kernels.probe_plan(data_tm, cfg)
+    assert plan["words_in_smem"] == (v < 256)
+    if T < 128:  # one tile of rows
+        assert plan["tiles"] * plan["lanes"] == 128
+    k_bits, k_total = kernels.launch_probe(data_tm, bp, w, cfg)
+    torch.cuda.synchronize()
+    p_bits, p_total = bloom.probe_bits_plain(data_tm, bp, w, cfg)
+    assert torch.equal(k_bits, p_bits)
+    assert int(k_total[0]) == int(p_total[0]) > 0
+
+
 def u16_walk_case(cuda, table_dtype):
-    from tpu_pattern_matching.core.dfa import AhoCorasick
+    from tpu_pattern_matching_torch.core.dfa import AhoCorasick
     from tpu_pattern_matching_torch.ops.table import DeviceTable
 
     rng = np.random.RandomState(21)
@@ -354,7 +398,7 @@ def test_u16_window_walk_kernel_equals_plain(cuda, table_dtype):
 
 
 def test_ushort_sessions_on_cuda_equal_oracle(cuda):
-    from tpu_pattern_matching.core.dfa import AhoCorasick
+    from tpu_pattern_matching_torch.core.dfa import AhoCorasick
 
     rng = np.random.RandomState(23)
     sigs = [tuple(int(x) for x in rng.randint(40, 1515, size=rng.randint(

@@ -3,8 +3,9 @@
 - The plain PyTorch probe (the CPU path, and what the CUDA kernels are held
   to on the card) equals the reference Pallas kernels run in interpret
   mode, bit for bit: bitmap and total, both kernel modes.
-- The CUDA kernels' own per-thread code (csrc/bloom_probe.cuh), compiled
-  for the CPU, equals the plain version.
+- The CUDA kernels' own tile code (csrc/bloom_probe.cuh), compiled for
+  the CPU and run tile by tile, equals the plain version, on tile edges
+  too (and there, through it, the reference).
 - Compaction, the exact-gram check and the refined probe equal the
   reference's functions.
 
@@ -91,7 +92,7 @@ def test_plain_probe_equals_reference_kernel(name):
     assert int(p_total[0]) == int(r_total[0]) > 0
 
 
-KERNEL_BODIES = [  # (mode, q, stride|w, k, v, fold)
+KERNEL_BODIES = [  # (mode, q, stride|w, k, v, fold[, tile edge])
     ("sampled", 4, 9, 6, 8, False),
     ("sampled", 4, 9, 6, 8, True),
     ("sampled", 4, 20, 6, 8, False),  # wider context than 16 rows
@@ -100,24 +101,83 @@ KERNEL_BODIES = [  # (mode, q, stride|w, k, v, fold)
     ("strided", 4, 4, 6, 16, False),
     ("strided", 3, 7, 10, 2, True),  # non-power-of-two stride
     ("strided", 1, 1, 2, 1, False),
+    # the tile edges of the kernels' tiling (TILE_EDGES)
+    ("sampled", 4, 9, 6, 8, False, "narrow-tiles"),
+    ("sampled", 4, 9, 6, 8, False, "span-ends-mid-tile"),
+    ("strided", 4, 4, 6, 16, False, "span-ends-mid-tile"),
+    ("sampled", 3, 5, 4, 2, False, "one-tile"),
+    ("strided", 4, 4, 6, 16, False, "one-tile"),
+    ("sampled", 4, 9, 6, 8, True, "cp128"),  # fold
+    ("strided", 3, 7, 10, 2, True, "cp128"),  # fold
+    ("sampled", 2, 1, 3, 4, False, "narrow-tiles"),  # w = 1
+    ("sampled", 4, 20, 6, 8, False, "narrow-tiles"),  # w = 20
+    ("sampled", 1, 4, 3, 4, False, "narrow-tiles"),  # q = 1
+    ("strided", 1, 2, 3, 4, False, "narrow-tiles"),  # q = 1
+    ("sampled", 8, 9, 6, 8, False, "narrow-tiles"),  # q = 8
+    ("strided", 8, 8, 4, 2, False, "narrow-tiles"),  # q = 8
+    ("strided", 3, 4, 2, 256, False, "cp128"),  # words outside shared memory
+    ("sampled", 4, 9, 2, 256, False, "span-ends-mid-tile"),  # same
 ]
+
+TILE_EDGES = {  # edge: (lanes, rows, gt, shared-memory budget, spans)
+    # a 24,000-byte budget leaves 32- or 64-lane tiles of 32 or 64 rows: every
+    # window and its context straddle tiles, across lanes and rows
+    "narrow-tiles": (150, 300, None, 24_000, "ragged"),
+    # spans that start and end inside tiles, lanes in two lane tiles
+    "span-ends-mid-tile": (150, 256, None, 0, "mid"),
+    # T (and Cp = 128) of exactly one tile: gt = 64 sampled (two words),
+    # gt = 32 strided (one word)
+    "one-tile": (100, 60, "one", 0, "ragged"),
+    "cp128": (128, 300, None, 0, "ragged"),
+}
+
+
+def edge_batch(seed, C, T, spans, text):
+    data, bounds = ragged_batch(seed, C, T, text=text)
+    if spans == "mid":
+        rng = np.random.RandomState(seed + 1)
+        bounds[0] = rng.randint(10, 50, size=C)
+        bounds[1] = rng.randint(T // 2 - 25, T // 2 + 25, size=C)
+        bounds[1, 3] = bounds[0, 3]  # an empty lane
+    return data, bounds
 
 
 @pytest.mark.parametrize(
     "spec", KERNEL_BODIES, ids=["-".join(map(str, s)) for s in KERNEL_BODIES]
 )
 def test_kernel_body_on_host_equals_plain(spec):
-    # bloom_probe.cuh's per-thread code is the kernels' arithmetic; g++
-    # runs it here over the whole launch grid
-    cfg = make_cfg(*spec, seed=3)
-    data, bounds = ragged_batch(4, 150, 300, text=cfg.fold_case)
+    # bloom_probe.cuh's tile code is the kernels' arithmetic; g++ runs it
+    # here over every tile of the launch. The tile-edge cases are held to
+    # the reference Pallas kernel (interpret mode) through the plain probe
+    cfg = make_cfg(*spec[:6], seed=3)
+    C, T, budget, spans = 150, 300, 0, "ragged"
+    if len(spec) > 6:
+        C, T, gt, budget, spans = TILE_EDGES[spec[6]]
+        if gt == "one":
+            cfg = dataclasses.replace(cfg, gt=64 if cfg.sampled else 32)
+    data, bounds = edge_batch(4, C, T, spans, cfg.fold_case)
     data_tm, Cp = port_bloom.prep_time_major(torch.from_numpy(data), cfg)
     bp = port_bloom.pad_bounds(torch.from_numpy(bounds), Cp)
     words = torch.from_numpy(random_words(cfg, 5))
-    h_bits, h_total = kernels.probe_on_host(data_tm, bp, words, cfg)
+    h_bits, h_total = kernels.probe_on_host(data_tm, bp, words, cfg,
+                                            smem_budget=budget)
     p_bits, p_total = port_bloom.probe_bits_plain(data_tm, bp, words, cfg)
     assert torch.equal(h_bits, p_bits)
     assert int(h_total[0]) == int(p_total[0]) > 0
+    if len(spec) == 6:
+        return
+    plan = kernels.probe_plan_on_host(data_tm.shape[0], Cp, cfg,
+                                      smem_budget=budget)
+    if budget:
+        assert plan["lanes"] < 128
+    if cfg.v == 256 or not budget:  # 256 KB of words: read through L2
+        assert plan["words_in_smem"] == (cfg.v < 256)
+    if gt == "one":  # one tile of rows (Cp / lanes of lanes)
+        assert plan["tiles"] * plan["lanes"] == Cp == 128
+    r_total, r_bits = ref_bloom._hits_jit(data, bounds, words.numpy(),
+                                          cfg=as_ref_cfg(cfg), interpret=True)
+    np.testing.assert_array_equal(p_bits.numpy(), np.asarray(r_bits))
+    assert int(p_total[0]) == int(r_total[0])
 
 
 def test_cpu_probe_never_reaches_the_kernels():

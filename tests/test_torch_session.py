@@ -224,23 +224,35 @@ def test_cuda_request_never_runs_on_cpu():
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
+    # the port imports nothing of the JAX package either: both are blocked
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any 'import jax' now raises
         "sys.modules['jaxlib'] = None\n"
+        "sys.modules['tpu_pattern_matching'] = None\n"
         "from tpu_pattern_matching_torch.runtime.session import "
         "session_for_patterns\n"
-        "s = session_for_patterns([b'abcd', b'cde'], max_chunks=4, "
+        "from tpu_pattern_matching_torch.core.oracle import match_python\n"
+        "from tpu_pattern_matching_torch.core.oracle_native import "
+        "NativeOracle\n"
+        "pats = [b'abcd', b'cde']\n"
+        "data = b'xxabcdexx' * 20\n"
+        "want = NativeOracle(pats).match_events(data)\n"
+        "assert want == sorted(match_python(pats, data)), want\n"
+        "s = session_for_patterns(pats, max_chunks=4, "
         "chunk_len=64, device='cpu')\n"
-        "got = s.find(b'xxabcdexx' * 20)\n"
-        "assert len(got) == 40, got\n"
+        "got = s.find(data)\n"
+        "assert got == want and len(got) == 40, got\n"
         "for kw in (dict(verify='device'), dict(engine='dense')):\n"
-        "    s = session_for_patterns([b'abcd', b'cde'], max_chunks=4, "
+        "    s = session_for_patterns(pats, max_chunks=4, "
         "chunk_len=64, device='cpu', **kw)\n"
-        "    assert s.find(b'xxabcdexx' * 20) == got, kw\n"
+        "    assert s.find(data) == got, kw\n"
+        "import tpu_pattern_matching_torch\n"
         "import tpu_pattern_matching_torch.cli\n"
         "import tpu_pattern_matching_torch.engine\n"
         "import tpu_pattern_matching_torch.apps.sentiment\n"
+        "import tpu_pattern_matching_torch.runtime.feeder\n"
+        "import tpu_pattern_matching_torch.runtime.tracing\n"
         "from tpu_pattern_matching_torch.ushort import compile_signatures\n"
         "from tpu_pattern_matching_torch.runtime.session import "
         "MatchSession\n"
@@ -248,7 +260,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "u = MatchSession(compile_signatures('sigs'), max_chunks=4, "
         "chunk_len=16, device='cpu', engine='bloom')\n"
         "assert u.find(b'1, 5, 500, 1999, 5') == [(3, 0)]\n"
-        "mods = [m for m in sys.modules if m.startswith('jax') and "
+        "mods = [m for m in sys.modules if (m.startswith('jax') or "
+        "m.split('.')[0] == 'tpu_pattern_matching') and "
         "sys.modules[m] is not None]\n"
         "assert not mods, mods\n"
         "print('OK')\n"

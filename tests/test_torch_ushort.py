@@ -120,28 +120,73 @@ def test_plain_probe_u16_equals_reference_kernel(name):
     assert int(p_total[0]) == int(r_total[0]) > 0
 
 
-KERNEL_BODIES = [  # (mode, q, stride|w, k, v)
-    ("sampled", 3, 4, 8, 32),  # words past the shared-memory stage
+KERNEL_BODIES = [  # (mode, q, stride|w, k, v[, tile edge])
+    ("sampled", 3, 4, 8, 32),  # 128 KB of words: the shared-memory opt-in
     ("sampled", 3, 20, 10, 8),  # wider context than 16 rows
     ("strided", 3, 4, 6, 8),
     ("strided", 2, 3, 9, 2),
+    # the tile edges of the kernels' tiling (TILE_EDGES)
+    ("sampled", 3, 4, 8, 32, "narrow-tiles"),
+    ("sampled", 3, 4, 8, 32, "span-ends-mid-tile"),
+    ("strided", 3, 4, 6, 8, "span-ends-mid-tile"),
+    ("sampled", 3, 4, 8, 4, "one-tile"),
+    ("strided", 3, 4, 6, 8, "one-tile"),
+    ("strided", 3, 4, 6, 8, "cp128"),
+    ("sampled", 1, 1, 2, 4, "narrow-tiles"),  # q = 1, w = 1
+    ("sampled", 8, 20, 4, 8, "narrow-tiles"),  # q = 8, w = 20
+    ("strided", 8, 8, 4, 2, "narrow-tiles"),  # q = 8
+    ("strided", 3, 8, 8, 256, "cp128"),  # words outside shared memory
 ]
+
+TILE_EDGES = {  # edge: (lanes, rows, gt, shared-memory budget, spans)
+    "narrow-tiles": (150, 300, None, 48_000, "ragged"),  # 32-64 lanes
+    "span-ends-mid-tile": (150, 256, None, 0, "mid"),
+    "one-tile": (100, 60, "one", 0, "ragged"),  # T and Cp of one tile
+    "cp128": (128, 300, None, 0, "ragged"),
+}
 
 
 @pytest.mark.parametrize(
     "spec", KERNEL_BODIES, ids=["-".join(map(str, s)) for s in KERNEL_BODIES])
 def test_probe_kernel_body_u16_on_host_equals_plain(spec):
-    cfg = make_cfg(*spec, seed=3)
-    data, bounds = u16_batch(4, 150, 300)
+    # the kernels' tile code at uint16 (tiles of twice the bytes); the
+    # tile-edge cases are held to the reference kernel through the plain
+    # probe
+    cfg = make_cfg(*spec[:5], seed=3)
+    C, T, budget, spans = 150, 300, 0, "ragged"
+    if len(spec) > 5:
+        C, T, gt, budget, spans = TILE_EDGES[spec[5]]
+        if gt == "one":
+            cfg = dataclasses.replace(cfg, gt=64 if cfg.sampled else 32)
+    data, bounds = u16_batch(4, C, T)
+    if spans == "mid":
+        rng = np.random.RandomState(5)
+        bounds[0] = rng.randint(10, 50, size=C)
+        bounds[1] = rng.randint(T // 2 - 25, T // 2 + 25, size=C)
     data_tm, Cp = port_bloom.prep_time_major(torch.from_numpy(data), cfg)
     assert data_tm.dtype == torch.uint16
     bp = port_bloom.pad_bounds(torch.from_numpy(bounds), Cp)
     words = torch.from_numpy(random_words(cfg, 5))
-    h_bits, h_total = kernels.probe_on_host(data_tm, bp, words, cfg)
+    h_bits, h_total = kernels.probe_on_host(data_tm, bp, words, cfg,
+                                            smem_budget=budget)
     p_bits, p_total = port_bloom.probe_bits_plain(data_tm, bp, words, cfg)
     assert torch.equal(h_bits, p_bits)
     assert int(h_total[0]) == int(p_total[0]) > 0
     assert kernels.probe_mode(data_tm, cfg) == spec[0] + "_u16"
+    plan = kernels.probe_plan_on_host(data_tm.shape[0], Cp, cfg, sym16=1,
+                                      smem_budget=budget)
+    if budget == 0:  # every filter up to k8 v32 is read from shared memory
+        assert plan["words_in_smem"] == (cfg.v < 256)
+    if len(spec) == 5:
+        return
+    if budget:
+        assert plan["lanes"] < 128
+    if gt == "one":  # one tile of rows
+        assert plan["tiles"] * plan["lanes"] == Cp == 128
+    r_total, r_bits = ref_bloom._hits_jit(data, bounds, words.numpy(),
+                                          cfg=as_ref_cfg(cfg), interpret=True)
+    np.testing.assert_array_equal(p_bits.numpy(), np.asarray(r_bits))
+    assert int(p_total[0]) == int(r_total[0])
 
 
 def test_u16_symbols_refuse_fold_case_and_packing():

@@ -19,19 +19,23 @@ Layout mirrors the reference so each module's counterpart is easy to find:
 - ``ushort``  — the packet-metadata grep (``run_ushort_grep``).
 - ``cli``     — ``torch_aho_grep``, the reference CLI's surface.
 - ``apps``    — the sentiment app on the port's session and CLI.
-- ``utils``   — the explicit device resolver.
+- ``core``    — the DFA compiler, pattern-file parsing and the oracles
+                (Python and native C++).
+- ``utils``   — the explicit device resolver, small helpers, debug log.
 
-Host modules with no JAX in them are imported from the reference package,
-not copied: ``core.*`` (DFA compiler, pattern parsing, native oracle),
-``runtime.buffers``, ``runtime.verify``, ``runtime.feeder``,
-``runtime.files``, ``runtime.stats``, ``runtime.stager_native``,
-``utils.common``/``utils.debug``, ``runtime.tracing.PhaseTimer`` and the
-sentiment app's counters. This package never imports ``jax``.
+This package imports nothing of the reference package and never imports
+``jax``. The reference's host modules that it needs are copied here under
+the same names (``core.*``, ``runtime.buffers``, ``runtime.verify``,
+``runtime.feeder``, ``runtime.files``, ``runtime.stats``,
+``runtime.stager_native``, ``utils.common``, ``utils.debug``,
+``runtime.tracing.PhaseTimer``, the sentiment app's counters), with the
+native oracle and stager sources in ``csrc/``; ``tests/test_torch_copies.py``
+holds them equal to the reference.
 """
 
 __version__ = "0.1.0"
 
-from tpu_pattern_matching.core.dfa import (  # noqa: F401
+from tpu_pattern_matching_torch.core.dfa import (  # noqa: F401
     AhoCorasick,
     DfaTable,
     compile_patterns,

@@ -51,15 +51,15 @@ import sys
 import numpy as np
 import torch
 
-from tpu_pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick, DfaTable
-from tpu_pattern_matching.core.patterns import (
+from tpu_pattern_matching_torch.core.dfa import ALPHABET_USHORT, AhoCorasick, DfaTable
+from tpu_pattern_matching_torch.core.patterns import (
     load_pattern_file,
     load_signature_file,
 )
-from tpu_pattern_matching.runtime.feeder import Feeder
-from tpu_pattern_matching.runtime.files import expand_paths
-from tpu_pattern_matching.runtime.stats import RunStats
-from tpu_pattern_matching.utils.common import now_us
+from tpu_pattern_matching_torch.runtime.feeder import Feeder
+from tpu_pattern_matching_torch.runtime.files import expand_paths
+from tpu_pattern_matching_torch.runtime.stats import RunStats
+from tpu_pattern_matching_torch.utils.common import now_us
 from tpu_pattern_matching_torch.runtime.session import MatchSession
 
 
@@ -193,7 +193,7 @@ def check_args(args) -> None:
 def align_parameters(args) -> None:
     """Round -B (and -L/-G, accepted for compatibility) to 16 with a
     warning (reference align_parameters, ocl_aho_grep.c:315-346)."""
-    from tpu_pattern_matching.utils.common import roundup
+    from tpu_pattern_matching_torch.utils.common import roundup
 
     if args.local_ws % 16:
         fixed = roundup(args.local_ws, 16)

@@ -17,8 +17,8 @@ from typing import Callable
 
 import torch
 
-from tpu_pattern_matching.core.dfa import DfaTable
-from tpu_pattern_matching.utils.common import pad_halo
+from tpu_pattern_matching_torch.core.dfa import DfaTable
+from tpu_pattern_matching_torch.utils.common import pad_halo
 from tpu_pattern_matching_torch.utils.device import resolve_device
 
 

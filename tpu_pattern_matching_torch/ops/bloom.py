@@ -523,7 +523,7 @@ class BloomFilterTable:
             float(np.unpackbits(words[b].view(np.uint8)).mean())
             for b in range(k)
         ]
-        from tpu_pattern_matching.utils.debug import dprint
+        from tpu_pattern_matching_torch.utils.debug import dprint
 
         dprint(
             1,
@@ -779,6 +779,24 @@ def probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
     unpacked to bytes first; its bitmap is the byte layout's."""
     import torch
 
+    hit, m1, m2 = probe_tested(data_tm, bounds, cfg)
+    for b in range(cfg.kbanks):
+        hit = hit & bank_hit(words, m1, m2, cfg, b)
+    R, Cp = hit.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=hit.device)[
+        None, :, None]
+    packed = (hit.reshape(R // 32, 32, Cp).to(torch.int64) << shifts).sum(1)
+    total = hit.sum().to(torch.int32).reshape(1)
+    return to_int32(packed), total
+
+
+def probe_tested(data_tm, bounds, cfg: BloomConfig):
+    """The rows the probe tests and their gram hashes, as the plain
+    version computes them: ``(tested [T/stride, Cp] bool, m1, m2 [T/stride,
+    Cp] int64)`` over the tested-row grid (every row when sampled): the
+    lane mask, and the winnowing selection when sampled."""
+    import torch
+
     if data_tm.dtype == torch.int32:
         if not packed_eligible(cfg, torch.uint8):
             raise ValueError(f"packed data_tm needs stride % 4 == 0: {cfg}")
@@ -786,7 +804,7 @@ def probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
     else:
         d = data_tm.to(torch.int64)
     T, Cp = d.shape
-    q, s, v = cfg.q, cfg.stride, cfg.v
+    q, s = cfg.q, cfg.stride
     dev = data_tm.device
     if cfg.fold_case:
         d = torch.where((d >= 65) & (d <= 90), d + 32, d)
@@ -805,37 +823,37 @@ def probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
         m2 = (m2 + sym * cfg.mix2[i]) & MASK32
     lane_live = end > start
     in_array = rows + q <= T
-    if cfg.sampled:
-        valid = (rows >= start) & (rows + q <= end) & lane_live & in_array
-        hs = (m1 ^ (m1 >> 13)) & INT32_MAX
-        hm = torch.where(valid, hs, INT32_MAX)
-        ctx = cfg.w - 1
-        pad = torch.full((ctx, Cp), INT32_MAX, dtype=torch.int64, device=dev)
-        hp = torch.cat([pad, hm, pad])
-        # a row is tested iff it is the rightmost argmin of some w-window:
-        # (run of predecessors >=) + (run of successors >) >= w-1
-        rk = [torch.ones((R, Cp), dtype=torch.bool, device=dev)]
-        for k in range(1, cfg.w):
-            rk.append(rk[-1] & (hp[ctx + k : ctx + k + R] > hm))
-        sel = rk[cfg.w - 1]
-        lacc = rk[0]
-        for j in range(1, cfg.w):
-            lacc = lacc & (hp[ctx - j : ctx - j + R] >= hm)
-            sel = sel | (lacc & rk[cfg.w - 1 - j])
-        hit = sel & valid
-    else:
-        hit = (rows + q <= end) & lane_live & in_array
-    wflat = words.reshape(-1).to(torch.int64) & MASK32
-    for b in range(cfg.kbanks):
-        h = (m1 + b * m2) & MASK32
-        h = h ^ (h >> 13)
-        unit = (h >> 17) & (v - 1)
-        word = wflat[(b * v + unit) * 128 + ((h >> 10) & 127)]
-        hit = hit & (((word >> ((h >> 5) & 31)) & 1) == 1)
-    shifts = torch.arange(32, dtype=torch.int64, device=dev)[None, :, None]
-    packed = (hit.reshape(R // 32, 32, Cp).to(torch.int64) << shifts).sum(1)
-    total = hit.sum().to(torch.int32).reshape(1)
-    return to_int32(packed), total
+    if not cfg.sampled:
+        return (rows + q <= end) & lane_live & in_array, m1, m2
+    valid = (rows >= start) & (rows + q <= end) & lane_live & in_array
+    hs = (m1 ^ (m1 >> 13)) & INT32_MAX
+    hm = torch.where(valid, hs, INT32_MAX)
+    ctx = cfg.w - 1
+    pad = torch.full((ctx, Cp), INT32_MAX, dtype=torch.int64, device=dev)
+    hp = torch.cat([pad, hm, pad])
+    # a row is tested iff it is the rightmost argmin of some w-window:
+    # (run of predecessors >=) + (run of successors >) >= w-1
+    rk = [torch.ones((R, Cp), dtype=torch.bool, device=dev)]
+    for k in range(1, cfg.w):
+        rk.append(rk[-1] & (hp[ctx + k : ctx + k + R] > hm))
+    sel = rk[cfg.w - 1]
+    lacc = rk[0]
+    for j in range(1, cfg.w):
+        lacc = lacc & (hp[ctx - j : ctx - j + R] >= hm)
+        sel = sel | (lacc & rk[cfg.w - 1 - j])
+    return sel & valid, m1, m2
+
+
+def bank_hit(words, m1, m2, cfg: BloomConfig, b: int):
+    """Whether bank ``b`` has the bit of each gram (m1, m2 from
+    :func:`probe_tested`), as a bool tensor of their shape."""
+    v = cfg.v
+    wflat = words.reshape(-1).to(m1.dtype) & MASK32
+    h = (m1 + b * m2) & MASK32
+    h = h ^ (h >> 13)
+    unit = (h >> 17) & (v - 1)
+    word = wflat[(b * v + unit) * 128 + ((h >> 10) & 127)]
+    return ((word >> ((h >> 5) & 31)) & 1) == 1
 
 
 def _use_packed(packed, cfg: BloomConfig, data) -> bool:
@@ -944,7 +962,7 @@ def unpack_hit_rows(bits: np.ndarray, stride: int):
     fallback is proportional to NONZERO words, not the bitmap."""
     u = bits.view(np.uint32) if bits.dtype == np.int32 else bits
     try:
-        from tpu_pattern_matching.core.oracle_native import unpack_bitmap
+        from tpu_pattern_matching_torch.core.oracle_native import unpack_bitmap
 
         return unpack_bitmap(u, stride)
     except Exception:

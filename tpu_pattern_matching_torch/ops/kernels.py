@@ -20,8 +20,10 @@ each width, chosen by the symbol tensor's dtype.
 Each library is compiled with its own ``nvcc`` at first use into
 ``_build/`` (listed in ``.gitignore``) and rebuilt when a source is newer;
 ``build_all`` runs both compiles at once. ``*_host.cpp`` runs the same
-per-thread code on the CPU (built with ``g++``) so the tests can check the
-kernels' arithmetic without a GPU.
+tile and thread code on the CPU (built with ``g++``) so the tests can
+check the kernels' arithmetic without a GPU. The same loader builds the
+host's native oracle and stager (``oracle.cpp``, ``stager.cpp``) with
+``g++``.
 
 The ``launch_*`` functions take CUDA tensors only and raise on anything
 else — there is no fallback: a CPU tensor never gets here (the ops modules
@@ -51,12 +53,18 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared and local memory per kernel
 )
 GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+# the native oracle and stager (host code, not kernels): tuned for the
+# host, as the reference builds them
+GXX_NATIVE_FLAGS = ("-std=c++17", "-O3", "-march=native", "-funroll-loops",
+                    "-shared", "-fPIC")
 # library file -> (sources, headers it includes)
 LIBRARIES = {
     "libtpm_probe_cuda.so": (("bloom_probe.cu",), ("bloom_probe.cuh",)),
     "libtpm_probe_host.so": (("bloom_probe_host.cpp",), ("bloom_probe.cuh",)),
     "libtpm_walk_cuda.so": (("dfa_walk.cu",), ("dfa_walk.cuh",)),
     "libtpm_walk_host.so": (("dfa_walk_host.cpp",), ("dfa_walk.cuh",)),
+    "liboracle.so": (("oracle.cpp",), ()),
+    "libstager.so": (("stager.cpp",), ()),
 }
 
 # Kernel launches per kernel and symbol width (``_u16``: uint16 symbols);
@@ -147,13 +155,18 @@ def _bind_probe_cuda(lib) -> None:
                lib.tpm_probe_strided_packed):
         fn.argtypes = [P] * 5 + [I] * 8 + [P] * 3
         fn.restype = I
+    lib.tpm_probe_plan.argtypes = [I] * 9 + [P]
+    lib.tpm_probe_plan.restype = I
     lib.tpm_error_string.argtypes = [I]
     lib.tpm_error_string.restype = ctypes.c_char_p
 
 
 def _bind_probe_host(lib) -> None:
-    lib.tpm_probe_host.argtypes = [I] + [P] * 5 + [I] * 9 + [P] * 2
+    lib.tpm_probe_host.argtypes = ([I] + [P] * 5 + [I] * 9 + [P] * 2
+                                   + [ctypes.c_long])
     lib.tpm_probe_host.restype = I
+    lib.tpm_probe_plan_host.argtypes = [I] * 9 + [ctypes.c_long, P]
+    lib.tpm_probe_plan_host.restype = I
 
 
 def _bind_walk(lib, stream: bool) -> None:
@@ -206,8 +219,14 @@ def build_all() -> None:
 
 
 def host_library() -> ctypes.CDLL:
-    """The probe kernels' per-thread bodies compiled for the CPU (g++)."""
+    """The probe kernels' tile code compiled for the CPU (g++)."""
     return _load(("libtpm_probe_host.so", _gxx, _bind_probe_host))[0]
+
+
+def native_library(name: str, bind) -> ctypes.CDLL:
+    """A host library of ``LIBRARIES`` (the native oracle or stager),
+    built with ``g++`` on first use and bound by ``bind``."""
+    return _load((name, lambda: ["g++", *GXX_NATIVE_FLAGS], bind))[0]
 
 
 def walk_host_library() -> ctypes.CDLL:
@@ -334,9 +353,46 @@ def launch_probe(data_tm, bounds, words, cfg):
     return bits, total
 
 
-def probe_on_host(data_tm, bounds, words, cfg):
-    """The kernels' own per-thread code run on the CPU (a test harness,
-    not a kernel): CPU tensors in, ``(bits, total)`` CPU tensors out."""
+PLAN_KEYS = ("lanes", "words", "tiles", "words_in_smem", "smem_bytes",
+             "threads", "blocks")
+
+
+def probe_plan(data_tm, cfg) -> dict:
+    """The tiling the sampled or strided kernel takes for this launch on
+    the current CUDA device: lanes and output words per tile, tiles, bank
+    words in shared memory or not, the dynamic shared memory it opts into,
+    threads per block and blocks (``PLAN_KEYS``)."""
+    T, Cp, sym16 = _check(data_tm, bounds=torch.zeros(
+        (2, data_tm.shape[1]), dtype=torch.int32, device=data_tm.device),
+        words=torch.zeros((cfg.kbanks, cfg.v, 128), dtype=torch.int32,
+                          device=data_tm.device), cfg=cfg)
+    lib = cuda_library()
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(data_tm.device):
+        rc = lib.tpm_probe_plan(int(cfg.sampled), T, Cp, cfg.q, cfg.stride,
+                                cfg.kbanks, cfg.v, cfg.w, sym16, out)
+    _raise_on(rc, "probe plan", lib.tpm_error_string)
+    return dict(zip(PLAN_KEYS, out))
+
+
+def probe_plan_on_host(T, Cp, cfg, sym16=0, smem_budget=0) -> dict:
+    """The tiling of ``probe_plan`` (no ``blocks``) under a shared-memory
+    budget per block (0: Hopper's 227 KB), from the kernels' own planner
+    compiled for the CPU."""
+    out = (ctypes.c_int * 6)()
+    rc = host_library().tpm_probe_plan_host(
+        int(cfg.sampled), T, Cp, cfg.q, cfg.stride, cfg.kbanks, cfg.v,
+        cfg.w, sym16, smem_budget, out)
+    if rc:
+        raise ValueError(f"no tiling fits {smem_budget} B for {cfg}")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def probe_on_host(data_tm, bounds, words, cfg, smem_budget: int = 0):
+    """The kernels' own tile code run on the CPU, tile by tile (a test
+    harness, not a kernel): CPU tensors in, ``(bits, total)`` CPU tensors
+    out. ``smem_budget`` (bytes per block, 0: Hopper's 227 KB) sets the
+    tiling the sampled and strided kernels would plan for."""
     T, Cp, sym16 = _check(data_tm, bounds, words, cfg)
     bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32)
     total = torch.zeros(1, dtype=torch.int32)
@@ -346,7 +402,7 @@ def probe_on_host(data_tm, bounds, words, cfg):
         mode, data_tm.data_ptr(), bounds.data_ptr(),
         words.data_ptr(), bits.data_ptr(), total.data_ptr(), T, Cp, cfg.q,
         cfg.stride, cfg.kbanks, cfg.v, cfg.w, int(cfg.fold_case), sym16,
-        mix1.ctypes.data, mix2.ctypes.data,
+        mix1.ctypes.data, mix2.ctypes.data, smem_budget,
     )
     if rc:
         raise RuntimeError(f"host probe rejected its arguments (code {rc})")

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_pattern_matching.core.dfa import DfaTable
+from tpu_pattern_matching_torch.core.dfa import DfaTable
 
 
 @dataclasses.dataclass

@@ -37,8 +37,8 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
-from tpu_pattern_matching.core.dfa import DfaTable
-from tpu_pattern_matching.runtime.buffers import (
+from tpu_pattern_matching_torch.core.dfa import DfaTable
+from tpu_pattern_matching_torch.runtime.buffers import (
     DataBuffer,
     HostBatch,
     StreamState,
@@ -126,9 +126,9 @@ class MatchSession:
         ``bloom_table``: a precompiled filter of this package
         (``BloomFilterTable.load`` or ``from_reference``) skips the
         chooser."""
-        from tpu_pattern_matching.runtime.verify import Verifier
-        from tpu_pattern_matching.utils.common import pad_halo
-        from tpu_pattern_matching.utils.debug import dprint
+        from tpu_pattern_matching_torch.runtime.verify import Verifier
+        from tpu_pattern_matching_torch.utils.common import pad_halo
+        from tpu_pattern_matching_torch.utils.debug import dprint
         from tpu_pattern_matching_torch.ops.bloom import (
             REFINE_HEADROOM,
             BloomFilterTable,
@@ -335,7 +335,7 @@ class MatchSession:
         """The survivor total (one device sync); on a refinement overflow
         grow ``k_ref`` so a match-dense stream stops paying full host
         verify every batch (capped at MAX_DEVICE_CAND)."""
-        from tpu_pattern_matching.utils.debug import dprint
+        from tpu_pattern_matching_torch.utils.debug import dprint
         from tpu_pattern_matching_torch.ops.verify_device import (
             MAX_DEVICE_CAND,
             next_cap,
@@ -532,6 +532,6 @@ class MatchSession:
 def session_for_patterns(
     patterns: Sequence[bytes], **kw
 ) -> MatchSession:
-    from tpu_pattern_matching.core.dfa import compile_patterns
+    from tpu_pattern_matching_torch.core.dfa import compile_patterns
 
     return MatchSession(compile_patterns(patterns), **kw)

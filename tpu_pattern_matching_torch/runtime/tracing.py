@@ -1,14 +1,13 @@
 """Profiling hooks (port of the reference's ``runtime/tracing.py``): a
 ``torch.profiler`` trace of a run (the CLI's ``--profile``) and the
-shared per-phase wall-time accumulator."""
+per-phase wall-time accumulator (a copy of the reference's)."""
 
 from __future__ import annotations
 
 import contextlib
 import os
-
-# jax-free at import (it imports jax only inside its device_trace)
-from tpu_pattern_matching.runtime.tracing import PhaseTimer  # noqa: F401
+import time
+from collections import defaultdict
 
 
 @contextlib.contextmanager
@@ -31,3 +30,25 @@ def device_trace(log_dir: str | None):
         yield
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace-{os.getpid()}.json"))
+
+
+class PhaseTimer:
+    """Accumulates wall time per phase (feed / h2d / scan / decode)."""
+
+    def __init__(self):
+        self.acc: dict[str, float] = defaultdict(float)
+        self.n: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.acc[name] += time.perf_counter() - t0
+            self.n[name] += 1
+
+    def render(self) -> str:
+        return " ".join(
+            f"{k}={v:.3f}s/{self.n[k]}" for k, v in sorted(self.acc.items())
+        )

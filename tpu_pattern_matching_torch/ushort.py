@@ -23,17 +23,17 @@ import sys
 
 import numpy as np
 
-from tpu_pattern_matching.core.dfa import (
+from tpu_pattern_matching_torch.core.dfa import (
     ALPHABET_USHORT,
     AhoCorasick,
     DfaTable,
 )
-from tpu_pattern_matching.core.patterns import load_signature_file
-from tpu_pattern_matching.runtime.buffers import UshortBuffer
-from tpu_pattern_matching.runtime.feeder import Feeder
-from tpu_pattern_matching.runtime.files import expand_paths
-from tpu_pattern_matching.runtime.stats import RunStats
-from tpu_pattern_matching.utils.common import cdiv, now_us
+from tpu_pattern_matching_torch.core.patterns import load_signature_file
+from tpu_pattern_matching_torch.runtime.buffers import UshortBuffer
+from tpu_pattern_matching_torch.runtime.feeder import Feeder
+from tpu_pattern_matching_torch.runtime.files import expand_paths
+from tpu_pattern_matching_torch.runtime.stats import RunStats
+from tpu_pattern_matching_torch.utils.common import cdiv, now_us
 from tpu_pattern_matching_torch.runtime.session import MatchSession
 
 
