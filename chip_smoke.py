@@ -16,10 +16,13 @@ Phases (any failure exits non-zero at once):
               sampled and strided probes on ragged random batches at the
               bench shape [4096 lanes, 4112] (with each launch's tiling:
               tiles, blocks, the dynamic shared memory opted into), the
-              packed strided probe (K3) on the same batch, both probes at
-              both widths on batches of one tile and of two lane tiles,
-              and the dense lane walk on seeded lanes at an int32 (10k
-              patterns) and an int16 (3 patterns) table;
+              packed strided probe (K3, also with its tiling) on the same
+              batch, both probes at both widths on batches of one tile and
+              of two lane tiles, and the dense lane walk (with its plan:
+              sub-spans per lane, steps per thread, threads, blocks) on
+              seeded lanes at an int32 (10k patterns) and an int16 (3
+              patterns) table, and on batches built for the seams between
+              its sub-spans at uint8/int32, uint8/int16 and uint16/int16;
 3. slice    — ``MatchSession(device="cuda")``, the default path: the bench
               workload (10,000 random 12-byte signatures, seed 42) over 64
               MiB of seeded random bytes with planted matches at 1e-3
@@ -35,7 +38,9 @@ Phases (any failure exits non-zero at once):
               workload are kept, and after the phase the kernel is checked
               against its plain version on them and timed, as in phase 2;
 6. dense    — ``MatchSession(engine="dense")`` on the same two workloads:
-              events equal the oracle's, no result slot overflowed;
+              events equal the oracle's, no result slot overflowed; then
+              one more find of each with every scan and decode
+              synchronised and timed;
 7. ushort   — the packet-metadata path on uint16 token lanes: 2,000
               seeded signatures of 6-16 tokens (packet-length-like values)
               over 64 flow files of 8 M tokens in all, planted at 1e-3 per
@@ -447,8 +452,7 @@ def check_probes(torch, bloom, kernels, data, bounds, configs, timed_modes,
                 f"{' fold' if fold else ''} {data_tm.dtype} "
                 f"[{data_tm.shape[0]}, {Cp}]: bits and total equal, "
                 f"tolerance 0 ({int(kt[0])} survivors)")
-        if not packed:
-            line += f"; {plan_text(kernels.probe_plan(data_tm, cfg))}"
+        line += f"; {plan_text(kernels.probe_plan(data_tm, cfg))}"
         if label in timed_modes:
             times[kind], text = timed(
                 torch,
@@ -581,12 +585,17 @@ def check_dense_walk(torch, kernels, table_flat, data_tm, bounds, dkw,
         fail(f"[kernels] dense walk, {label}: kernel differs from plain "
              f"(max_abs_err {err})")
     key = "dense_walk_u16" if data_tm.dtype == torch.uint16 else "dense_walk"
+    plan = kernels.dense_plan(data_tm, halo=dkw["halo"],
+                              max_pat_len=dkw["max_pat_len"])
     line = (f"[kernels] {key:14s} {label:22s} {table_flat.dtype} table "
             f"({table_flat.numel() * table_flat.element_size()} B), "
             f"{data_tm.dtype} [{T}, {C}] R{dkw['max_results']} with "
             f"gcounts: counts, slots and gcounts equal, tolerance 0 "
             f"({int(want[0].sum())} reports, max {int(want[0].max())} in a "
-            f"lane)")
+            f"lane); {plan['subspans']} sub-spans a lane, {plan['steps']} "
+            f"steps a thread with the warm-up of {dkw['max_pat_len'] - 1}, "
+            f"{plan['blocks']} blocks of {plan['threads']} threads, "
+            f"{dense_loads(bounds, T, dkw, plan['subspans'])} table loads")
     times = {}
     if timed_key:
         times[timed_key], text = timed(
@@ -599,6 +608,21 @@ def check_dense_walk(torch, kernels, table_flat, data_tm, bounds, dkw,
         line += text
     print(line, flush=True)
     return times
+
+
+def dense_loads(bounds, T: int, dkw, S: int) -> int:
+    """W1's dependent table loads on these lanes: the steps of each of the
+    S sub-spans of every lane, warm-up included (dfa_walk.cuh,
+    dense_walk_piece)."""
+    b = bounds.cpu().numpy().astype(np.int64)
+    start = np.maximum(b[0], 0)[:, None]
+    end = np.minimum(b[1], T)[:, None]
+    halo, warm = dkw["halo"], dkw["max_pat_len"] - 1
+    piece = -(-max(T - halo, 0) // S)
+    first = halo + piece * np.arange(S)[None, :]
+    lo = np.where(first < start, start, np.minimum(first, T))
+    hi = np.minimum(first + piece, end)
+    return int(np.where(lo < hi, hi - np.maximum(lo - warm, start), 0).sum())
 
 
 def dense_bound(torch, data_tm, bounds, dkw) -> dict:
@@ -630,12 +654,69 @@ def phase_dense_walk(torch, kernels, workloads, card_line: str) -> dict:
         dt = DeviceTable.put(table, dev)
         data, bounds = planted_batch(torch, pats, seed=len(pats))
         dkw = dict(alphabet_size=256, halo=HALO, max_results=16,
-                   state_gid=dt.state_gid, num_groups=dt.num_groups)
+                   max_pat_len=table.max_pat_len, state_gid=dt.state_gid,
+                   num_groups=dt.num_groups)
         times.update(check_dense_walk(
             torch, kernels, dt.table_flat, data.t().contiguous(), bounds,
             dkw, w["label"], card_line,
             "dense_walk" if w["label"] == "bench workload" else None))
+    for wide, table_dtype in ((False, np.int32), (False, np.int16),
+                              (True, np.int16)):
+        table, data_tm, bounds = seam_batch(wide, table_dtype)
+        dt = DeviceTable.put(table, dev)
+        dkw = dict(alphabet_size=table.alphabet_size, halo=8, max_results=4,
+                   max_pat_len=table.max_pat_len, state_gid=dt.state_gid,
+                   num_groups=dt.num_groups)
+        check_dense_walk(torch, kernels, dt.table_flat,
+                         torch.from_numpy(data_tm).to(dev),
+                         torch.from_numpy(bounds).to(dev), dkw, "seams",
+                         card_line)
     return times
+
+
+def seam_batch(wide: bool, table_dtype, C=300, T=8 + 600, halo=8):
+    """A batch built for the seams between the dense walk's sub-spans
+    (also the CPU tests' batch, tests/test_torch_dense.py): a 9-symbol
+    pattern (the longest) planted every 13 rows at a shift of its own in
+    each lane, so that it straddles every seam; patterns that end at one
+    position (ab, cab, abcab); "aa" over a lane of a's, past its R slots
+    (lane 5); lanes 10-39 start after the halo with a match across their
+    start_t (a warm-up must clip there); empty lanes, lanes of 3 rows, a
+    lane that ends before it starts and one that ends 2 rows past the
+    halo; C need not be a multiple of 32 (the last warp of lanes is
+    masked). ``wide``: uint16 symbols over the alphabet of 2048, a = 2047,
+    with filler tokens past it (3000, 65535) that read as a. Returns
+    (table, time-major data [T, C], bounds [2, C])."""
+    from tpu_pattern_matching_torch.core.dfa import AhoCorasick
+
+    rng = np.random.RandomState(31 + wide)
+    a, b, c, d = (2047, 5, 1000, 7) if wide else (97, 98, 99, 100)
+    pats = [(a, b, b, a, c, a, b, c, a), (a, a), (a, b), (c, a, b),
+            (a, b, c, a, b)]
+    ac = AhoCorasick(2048 if wide else 256)
+    for pat in pats:
+        ac.add_pattern(pat)
+    table = ac.compile()
+    table.goto_signed = table.goto_signed.astype(table_dtype)
+    sym = np.uint16 if wide else np.uint8
+    data = np.full((C, T), d, sym)
+    if wide:  # never two fillers in a row
+        data[:, 3::10] = rng.choice([3000, 65535], size=data[:, 3::10].shape)
+    for lane in range(C):
+        for o in range(lane % 13, T - 9, 13):
+            data[lane, o : o + 9] = pats[0]
+    data[5] = a
+    data[9, 20:60] = np.tile(np.asarray(pats[4], sym), 8)
+    start = np.where(rng.rand(C) < 0.5, 0, halo).astype(np.int32)
+    end = rng.randint(T - 40, T + 1, size=C).astype(np.int32)
+    start[10:40] = rng.randint(halo + 1, T // 2, size=30)
+    for lane in range(10, 40):
+        data[lane, start[lane] - 2 : start[lane] + 7] = pats[0]
+    end[3::17] = start[3::17]
+    end[4::17] = start[4::17] + 3
+    start[6], end[6] = halo - 1, halo + 2
+    end[7] = start[7] - 1
+    return table, np.ascontiguousarray(data.T), np.stack([start, end])
 
 
 def phase_dense_walk_u16(torch, kernels, ush, card_line: str) -> dict:
@@ -656,7 +737,8 @@ def phase_dense_walk_u16(torch, kernels, ush, card_line: str) -> dict:
     data_tm = torch.from_numpy(data).to(dev).t().contiguous()
     bounds = torch.from_numpy(np.stack([start, end])).to(dev)
     dkw = dict(alphabet_size=2048, halo=U16_HALO, max_results=16,
-               state_gid=dt.state_gid, num_groups=dt.num_groups)
+               max_pat_len=ush["table"].max_pat_len, state_gid=dt.state_gid,
+               num_groups=dt.num_groups)
     print(f"[kernels] ushort table: {ush['table'].num_states} states x 2048 "
           f"symbols, {dt.table_flat.dtype}, {dt.nbytes} B on the card "
           f"(int32: {dt.table_flat.numel() * 4} B)", flush=True)
@@ -935,17 +1017,60 @@ def phase_window_walk(torch, kernels, walks, timed_label, card_line) -> dict:
 
 
 def phase_dense(torch, kernels, MatchSession, workloads, card_line) -> dict:
-    """engine="dense" on both workloads (find raises on slot overflow)."""
+    """engine="dense" on both workloads (find raises on slot overflow);
+    then, after the launch counts are read, one more find of each with
+    every scan and decode synchronised and timed."""
     reset(kernels)
+    sessions = []
     for w in workloads:
         sess = session(MatchSession, w, engine="dense")
         rate = timed_find(torch, sess, w, "dense")
+        sessions.append(sess)
         print(f"[dense] {w['label']}: table {sess.dev.nbytes} B "
               f"({sess.dev.table_flat.dtype}), find over {len(w['data'])} B "
               f"-> {len(w['want'])} events == native oracle, no result-slot "
               f"overflow (R {sess.max_results}); {rate:.6g} B/s end to end "
               f"(smoke number, {card_line})", flush=True)
-    return read_launches(kernels, "dense", ("dense_walk",))
+    launches = read_launches(kernels, "dense", ("dense_walk",))
+    for sess, w in zip(sessions, workloads):
+        find_ms, spent, n = staged_find_ms(torch, sess, w["data"])
+        print(f"[dense] {w['label']}: find {find_ms:.4f} ms with each stage "
+              f"synchronised: scan {spent['scan']:.4f} ms, decode "
+              f"{spent['decode']:.4f} ms over {n} batches, rest "
+              f"{find_ms - spent['scan'] - spent['decode']:.4f} ms (host "
+              f"clock, {card_line})", flush=True)
+    return launches
+
+
+def staged_find_ms(torch, sess, data: bytes) -> tuple[float, dict, int]:
+    """One find of ``data`` with each ``scan`` and ``decode`` of the
+    session synchronised and timed on the host clock: (find ms, ms spent
+    per stage, batches)."""
+    spent = {"scan": 0.0, "decode": 0.0}
+    n = [0]
+
+    def timed_stage(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            n[0] += name == "scan"
+            return out
+        return run
+
+    sess.scan = timed_stage("scan", sess.scan)
+    sess.decode = timed_stage("decode", sess.decode)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.find(data)
+        torch.cuda.synchronize()
+        find_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del sess.scan, sess.decode  # the instance attributes shadowed them
+    return find_ms, spent, n[0]
 
 
 def plant_tokens(rng, sigs, n_tokens, density):

@@ -188,7 +188,8 @@ def test_dense_walk_kernel_equals_plain(cuda, table_dtype):
     dt, data, bounds, halo = walk_case(cuda, table_dtype, 30)
     data_tm = data.t().contiguous()
     kw = dict(alphabet_size=256, halo=halo, max_results=8,
-              state_gid=dt.state_gid, num_groups=dt.num_groups)
+              max_pat_len=dt.max_pat_len, state_gid=dt.state_gid,
+              num_groups=dt.num_groups)
     before = kernels.launches["dense_walk"]
     got = kernels.launch_dense_walk(dt.table_flat, data_tm, bounds, **kw)
     torch.cuda.synchronize()
@@ -359,7 +360,8 @@ def test_u16_dense_walk_kernel_equals_plain(cuda, table_dtype):
     dt, data, bounds, halo = u16_walk_case(cuda, table_dtype)
     data_tm = data.t().contiguous()
     kw = dict(alphabet_size=2048, halo=halo, max_results=8,
-              state_gid=dt.state_gid, num_groups=dt.num_groups)
+              max_pat_len=dt.max_pat_len, state_gid=dt.state_gid,
+              num_groups=dt.num_groups)
     before = kernels.launches["dense_walk_u16"]
     got = kernels.launch_dense_walk(dt.table_flat, data_tm, bounds, **kw)
     torch.cuda.synchronize()

@@ -3,7 +3,11 @@ CPU.
 
 - The dense lane walk's plain PyTorch version (the CPU path, and what the
   CUDA kernel is held to on the card) and the kernel's own per-thread code
-  (csrc/dfa_walk.cuh, built with g++) agree, group counts included.
+  (csrc/dfa_walk.cuh, built with g++) agree, group counts included: the
+  kernel's sub-spans (each walked from the root after a warm-up of
+  max_pat_len - 1 symbols) and their merge, at 1, 2, 7 and 64 sub-spans
+  a lane, on batches built for the seams between them (chip_smoke.py's
+  ``seam_batch``, which the card's run checks too).
 - ``scan_batch``, ``scan_and_compact``, ``compact_matches``,
   ``sort_matches`` and ``per_group_counts`` equal the reference's on the
   same arrays, through R-slot and capacity overflows.
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import seam_batch
 from tests.fixtures import random_words_corpus
 from tpu_pattern_matching.core.dfa import AhoCorasick, compile_patterns
 from tpu_pattern_matching.core.oracle import match_python
@@ -65,6 +70,7 @@ def test_dense_walk_kernel_body_on_host_equals_plain(table_dtype, gcounts):
     args = (dev.table_flat, torch.from_numpy(data.T.copy()),
             torch.from_numpy(bounds))
     kw = dict(alphabet_size=256, halo=halo, max_results=4,
+              max_pat_len=dev.max_pat_len,
               state_gid=dev.state_gid if gcounts else None,
               num_groups=dev.num_groups)
     host = kernels.dense_walk_on_host(*args, **kw)
@@ -79,6 +85,104 @@ def test_dense_walk_kernel_body_on_host_equals_plain(table_dtype, gcounts):
     assert int(plain[0].max()) > 4  # some lanes overflowed their R slots
     assert dev.table_flat.dtype == torch.from_numpy(
         np.zeros(1, table_dtype)).dtype  # kept as compiled
+
+
+SUBSPANS = [1, 2, 7, 64]
+SEAMS = dict(C=40, T=8 + 122, halo=8)  # pieces of 61 rows down to 2
+DENSE_BODIES = {  # name: (batch, table dtype, group ids)
+    "dense_case-int16": ("dense", np.int16, "table"),
+    "dense_case-int32": ("dense", np.int32, "table"),
+    "seams-int32": ("seams", np.int32, "table"),
+    "seams-int16": ("seams", np.int16, "table"),
+    "seams-int16-gid-minus-1": ("seams", np.int16, "some -1"),
+    "seams-int32-no-gcounts": ("seams", np.int32, None),
+}
+
+
+def walk_args(table, data_tm, bounds, halo, R, gids):
+    """(args, kw) of a dense walk of the time-major batch; ``gids``:
+    "table" (the table's group ids), "some -1" (every other final
+    state's id replaced by -1), or None (no group counts)."""
+    dev = DeviceTable.put(table, CPU)
+    state_gid = None if gids is None else dev.state_gid.clone()
+    if gids == "some -1":
+        final = torch.nonzero(state_gid >= 0).flatten()
+        state_gid[final[::2]] = -1
+    return ((dev.table_flat, torch.from_numpy(data_tm),
+             torch.from_numpy(bounds)),
+            dict(alphabet_size=table.alphabet_size, halo=halo,
+                 max_results=R, max_pat_len=table.max_pat_len,
+                 state_gid=state_gid, num_groups=dev.num_groups))
+
+
+def check_subspans_equal_plain(args, kw, S):
+    host = kernels.dense_walk_on_host(*args, subspans=S, **kw)
+    plain = port_mx.dense_walk_plain(*args, **kw)
+    for h, p in zip(host[:3], plain[:3]):
+        assert torch.equal(h, p)
+    if kw["state_gid"] is None:
+        assert host[3] is None and plain[3] is None
+    else:
+        assert torch.equal(host[3], plain[3])
+    return plain
+
+
+@pytest.mark.parametrize("S", SUBSPANS)
+@pytest.mark.parametrize("name", list(DENSE_BODIES))
+def test_dense_walk_subspans_on_host_equal_plain(name, S):
+    batch, table_dtype, gids = DENSE_BODIES[name]
+    if batch == "dense":
+        table, data, bounds, halo = dense_case(7, table_dtype)
+        data = data.T.copy()
+    else:
+        table, data, bounds = seam_batch(False, table_dtype, **SEAMS)
+        halo = SEAMS["halo"]
+    plain = check_subspans_equal_plain(
+        *walk_args(table, data, bounds, halo, 4, gids), S)
+    counts = plain[0]
+    assert int(counts.max()) > 4  # lanes past their R slots
+    if batch == "seams":  # the run of a's; an empty lane; end < start
+        assert int(counts[5]) > 50 and int(counts[3]) == int(counts[7]) == 0
+
+
+def test_seam_batch_equals_reference_scan():
+    # the seam batch through the reference's scan: the plain version the
+    # sub-spans are held to equals it there too
+    table, data_tm, bounds = seam_batch(False, np.int32, **SEAMS)
+    halo = SEAMS["halo"]
+    r = ref_mx.scan_batch(RefTable.put(table), data_tm.T.copy(), bounds[0],
+                          bounds[1], halo, max_results=4)
+    args, kw = walk_args(table, data_tm, bounds, halo, 4, None)
+    plain = port_mx.dense_walk_plain(*args, **kw)
+    for name, got in zip(("counts", "slot_state", "slot_pos"), plain):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(r, name)))
+    assert int(r.total) > 0
+
+
+def test_dense_plan():
+    bench = kernels.dense_plan_on_host(16 + 4096, 4096, halo=16,
+                                       max_pat_len=12)
+    assert bench == dict(subspans=32, steps=128 + 11, threads=1024,
+                         blocks=128)
+    u16 = kernels.dense_plan_on_host(16 + 2048, 4096, halo=16,
+                                     max_pat_len=16)
+    assert u16 == dict(subspans=32, steps=64 + 15, threads=1024, blocks=128)
+    # the warm-up stays within a quarter of a piece; a wide batch fills
+    # the card with fewer sub-spans; a batch past the halo has none
+    small = kernels.dense_plan_on_host(8 + 122, 40, halo=8, max_pat_len=9)
+    assert small["subspans"] == 2 and small["steps"] == 61 + 8
+    wide = kernels.dense_plan_on_host(4112, 135168, halo=16, max_pat_len=12)
+    assert wide["subspans"] == 1 and wide["blocks"] == 4224
+    assert kernels.dense_plan_on_host(16, 64, halo=16,
+                                      max_pat_len=4)["subspans"] == 1
+    with pytest.raises(ValueError, match="no dense plan"):
+        kernels.dense_plan_on_host(16, 64, halo=16, max_pat_len=0)
+    table, data, bounds = seam_batch(False, np.int32, **SEAMS)
+    args, kw = walk_args(table, data, bounds, 8, 4, None)
+    with pytest.raises(ValueError, match="max_pat_len"):
+        kernels.dense_walk_on_host(*args, subspans=2,
+                                   **dict(kw, max_pat_len=0))
 
 
 @pytest.mark.parametrize("R", [2, 16])

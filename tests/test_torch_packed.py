@@ -5,8 +5,10 @@ The packed data path views each 4 bytes of a lane as one little-endian
 int32 and probes those words (strided configs with ``stride % 4 == 0``).
 Its bitmap must equal the reference's packed Pallas kernel run in
 interpret mode and the port's own byte path, bit for bit; the kernel's
-per-thread code (csrc/bloom_probe.cuh ``strided_word_packed``), compiled
-for the CPU, must equal the plain version. Integers: tolerance zero."""
+tile code (csrc/bloom_probe.cuh, the strided kernel's steps on staged
+word rows), compiled for the CPU and run tile by tile, must equal the
+plain version, on tile edges forced by small shared-memory budgets.
+Integers: tolerance zero."""
 
 import dataclasses
 
@@ -98,6 +100,8 @@ PACKED_BODIES = [  # (q, stride, k, v, fold)
     (3, 8, 10, 2, True),
     (8, 8, 3, 4, False),  # two words per gram
     (5, 12, 2, 1, False),
+    (4, 8, 10, 4, True),  # s8 nocase k>8
+    (6, 12, 6, 256, False),  # s12 q6 v=256: words read outside shared memory
 ]
 
 
@@ -125,6 +129,60 @@ def test_packed_kernel_body_on_host_equals_plain(spec):
     data_tm, _ = port_bloom.prep_time_major(data, cfg)
     b_bits, b_total = port_bloom.probe_bits_plain(data_tm, bp, words, cfg)
     assert torch.equal(b_bits, p_bits) and int(b_total[0]) == int(p_total[0])
+
+
+PACKED_TILES = [  # (q, stride, k, v, fold): chip_smoke.py's packed configs
+    (4, 4, 6, 16, False),  # packed s4
+    (4, 8, 10, 4, True),  # packed s8 nocase k>8
+    (6, 12, 6, 256, False),  # packed s12 q6 v=256
+]
+PACKED_EDGES = {  # edge: (lanes, rows, shared-memory budget, spans)
+    "narrow-tiles": (150, 300, 40_000, "ragged"),  # 32-lane tiles
+    "span-ends-mid-tile": (150, 600, 40_000, "mid"),
+    "cp128": (128, 300, 0, "ragged"),  # one lane tile
+    "cp128-narrow": (100, 200, 40_000, "mid"),
+}
+
+
+@pytest.mark.parametrize("edge", list(PACKED_EDGES))
+@pytest.mark.parametrize(
+    "spec", PACKED_TILES, ids=["-".join(map(str, s)) for s in PACKED_TILES])
+def test_packed_tiles_on_host_equal_plain(spec, edge):
+    # the packed kernel's tile loop at the edges of its tiling: tiles
+    # narrower than the batch, spans that end inside a tile, Cp = 128
+    cfg = make_cfg(*spec, seed=6)
+    C, T, budget, spans = PACKED_EDGES[edge]
+    rng = np.random.RandomState(7)
+    lo, hi = (32, 128) if cfg.fold_case else (0, 256)
+    data = torch.from_numpy(rng.randint(lo, hi, size=(C, T)).astype(np.uint8))
+    start = rng.randint(0, 9, size=C).astype(np.int32)
+    end = rng.randint(T - 20, T + 1, size=C).astype(np.int32)
+    if spans == "mid":
+        start = rng.randint(10, 50, size=C).astype(np.int32)
+        end = rng.randint(T // 2 - 40, T // 2 + 40, size=C).astype(np.int32)
+    end[3] = start[3]
+    bounds = torch.from_numpy(np.stack([start, end]))
+    words = torch.from_numpy(rng.randint(
+        -(2**31), 2**31, size=(cfg.kbanks, cfg.v, 128)).astype(np.int32))
+    data_pk, Cp = port_bloom.prep_time_major(data, cfg, packed=True)
+    bp = port_bloom.pad_bounds(bounds, Cp)
+    h_bits, h_total = kernels.probe_on_host(data_pk, bp, words, cfg,
+                                            smem_budget=budget)
+    p_bits, p_total = port_bloom.probe_bits_plain(data_pk, bp, words, cfg)
+    assert torch.equal(h_bits, p_bits)
+    assert int(h_total[0]) == int(p_total[0]) > 0
+    T4 = data_pk.shape[0] * 4
+    plan = kernels.probe_plan_on_host(T4, Cp, cfg, smem_budget=budget,
+                                      packed=True)
+    n_words = T4 // (32 * cfg.stride)
+    assert plan["tiles"] == Cp // plan["lanes"] * n_words  # one word a tile
+    assert (plan["lanes"] < 128) == (budget > 0)
+    if edge.startswith("cp128"):
+        assert Cp == 128
+    # the packed buffers hold the byte tile's rows, rounded up to words
+    byte = kernels.probe_plan_on_host(T4, Cp, cfg, smem_budget=budget)
+    assert byte["lanes"] == plan["lanes"]
+    assert 0 <= plan["smem_bytes"] - byte["smem_bytes"] <= 2 * 4 * 128
 
 
 def test_packed_view_is_little_endian():

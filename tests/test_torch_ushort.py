@@ -7,7 +7,7 @@ reference, on the CPU: uint16 token lanes over the alphabet of 2048.
 - The dense walk equals ``scan_batch``; ``verify_candidates`` (the window
   walk inside) equals ``_verify_jit``, unrefined and refined.
 - The kernels' per-thread code (csrc/*.cuh, built with g++) at uint16
-  equals the plain versions.
+  equals the plain versions, the dense walk's sub-spans included.
 - ``MatchSession.find`` on flow text, on all three paths, equals
   ``match_python`` and the reference session, including the
   halo-straddling and out-of-range-clamp cases of tests/test_ushort.py.
@@ -26,6 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import seam_batch
+from tests.test_torch_dense import (SEAMS, SUBSPANS,
+                                    check_subspans_equal_plain, walk_args)
 from tpu_pattern_matching.core.dfa import AhoCorasick
 from tpu_pattern_matching.core.oracle import match_python
 from tpu_pattern_matching.ops import bloom as ref_bloom
@@ -204,7 +207,7 @@ def test_u16_symbols_refuse_fold_case_and_packing():
             torch.zeros(A, dtype=torch.int16),
             torch.zeros((4, 3), dtype=torch.int32),
             torch.zeros((2, 3), dtype=torch.int32), alphabet_size=A, halo=0,
-            max_results=1)
+            max_results=1, max_pat_len=1)
 
 
 @pytest.mark.parametrize("k_ref", [256, 8])
@@ -252,10 +255,24 @@ def test_dense_walk_u16_equals_scan_batch_and_kernel_body(table_dtype):
     args = (dev.table_flat, torch.from_numpy(data.T.copy()),
             torch.from_numpy(bounds))
     kw = dict(alphabet_size=A, halo=8, max_results=4,
-              state_gid=dev.state_gid, num_groups=dev.num_groups)
+              max_pat_len=table.max_pat_len, state_gid=dev.state_gid,
+              num_groups=dev.num_groups)
     for h, q in zip(kernels.dense_walk_on_host(*args, **kw),
                     port_mx.dense_walk_plain(*args, **kw)):
         assert torch.equal(h, q)
+
+
+@pytest.mark.parametrize("S", SUBSPANS)
+@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
+def test_dense_walk_u16_subspans_on_host_equal_plain(table_dtype, S):
+    # the kernel's sub-spans and merge at uint16 on the seam batch, with
+    # tokens past 2047 (read as 2047, the first symbol of the longest
+    # signature)
+    table, data_tm, bounds = seam_batch(True, table_dtype, **SEAMS)
+    assert data_tm.dtype == np.uint16 and data_tm.max() == 65535
+    plain = check_subspans_equal_plain(
+        *walk_args(table, data_tm, bounds, SEAMS["halo"], 4, "table"), S)
+    assert int(plain[0].max()) > 4 and int(plain[0][5]) > 50
 
 
 @pytest.mark.parametrize("table_dtype,exact", [(np.int16, False),

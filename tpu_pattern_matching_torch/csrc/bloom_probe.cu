@@ -12,16 +12,16 @@
 // alphabet of 2048; the sampled and strided kernels are instantiated for
 // both widths, the packed kernel exists for bytes only, as in the
 // reference), or for the packed kernel [T/4, C] uint32 words of 4
-// little-endian bytes; bounds [2, C] int32 (start_t, end_t), words
-// [k, v, 128] uint32. Output bits [T/(32*stride), C] int32: bit b of
-// bits[w, c] is the gram starting at row (w*32 + b)*stride of lane c;
-// *total += popcount of the whole bitmap (zeroed by the caller).
+// little-endian bytes (stride % 4 == 0); bounds [2, C] int32 (start_t,
+// end_t), words [k, v, 128] uint32. Output bits [T/(32*stride), C] int32:
+// bit b of bits[w, c] is the gram starting at row (w*32 + b)*stride of
+// lane c; *total += popcount of the whole bitmap (zeroed by the caller).
 //
-// The sampled and strided kernels: what bounds them on this card is the
-// read of the batch (each symbol once) and the integer work per row (the
-// selection hash of every row, the window rule, the bank hashes of the
-// tested rows); the bank words are random gathers. The design does about
-// it (tile steps in bloom_probe.cuh):
+// What bounds the kernels on this card is the read of the batch (each
+// symbol once) and the integer work per row (the selection hash of every
+// row, the window rule, the bank hashes of the tested rows); the bank
+// words are random gathers. The design does about it (tile steps in
+// bloom_probe.cuh):
 //   - persistent blocks, a few per SM, loop over tiles of TW output words
 //     x L lanes; each block stages the bank words in shared memory once
 //     (opting into up to 227 KB: k8 v32 = 128 KB fits), not once per tile;
@@ -37,9 +37,12 @@
 //     of each lane's word; strided: per warp, with no block barrier), so
 //     that every lane of a warp probes; hits are set with atomicOr in a
 //     shared output tile, written once, coalesced, with its popcount.
-// The packed strided kernel keeps the first design: one thread per lane,
-// 128 lanes per block, four output words per thread, bank words staged
-// per block when they fit in 48 KB.
+// The packed strided kernel is the strided kernel on words: its copy-in
+// stages the tile's word rows (a quarter as many rows, 4 bytes a lane,
+// the same 16-byte cp.async copies, skipping the word rows no gram reads)
+// and its grams take their bytes out of the staged words (tile_gram), so
+// it fills the card and stages the bank words once per block as the
+// strided kernel does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,9 +59,6 @@ using tpm::TilePlan;
 using tpm::TileView;
 
 constexpr int kMaxThreads = 1024;
-constexpr int kBlockLanes = 128;    // the packed kernel
-constexpr int kWordsPerThread = 4;  // the packed kernel: 128 rows a thread
-constexpr size_t kSmemWordsBytes = 48 * 1024;  // the packed kernel
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -74,8 +74,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Copy the tile's needed rows and its lane bounds into buffer b (the
-// offsets are selected, not indexed, so the plan stays in registers).
+// Copy the tile's needed rows (packed: word rows) and its lane bounds into
+// buffer b (the offsets are selected, not indexed, so the plan stays in
+// registers).
 template <typename Sym>
 __device__ __forceinline__ void stage_tile(
     const Sym* __restrict__ data, const int32_t* __restrict__ bounds,
@@ -83,12 +84,16 @@ __device__ __forceinline__ void stage_tile(
     unsigned char* smem, int b) {
   int word0, nwords, lane0, base;
   tpm::tile_place(p, t, sampled, tile, word0, nwords, lane0, base);
+  const int per = tpm::rows_per_staged_row<Sym>();
+  const int rows = (t.rows + per - 1) / per;
   const int cpr = t.L * (int)sizeof(Sym) / 16;  // 16-byte chunks per row
   unsigned char* buf = smem + (b ? t.off_buf[1] : t.off_buf[0]);
-  for (int c = threadIdx.x; c < t.rows * cpr; c += blockDim.x) {
+  for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
     const int i = c / cpr, k = c - i * cpr;
-    const int r = base + i;
-    if (r < 0 || r >= p.T || !tpm::tile_row_needed(p, sampled, i)) continue;
+    const int r = base / per + i;
+    if (r < 0 || r >= p.T / per ||
+        !tpm::tile_row_needed(p, sampled, i * per))
+      continue;
     cp_async16(buf + ((size_t)i * cpr + k) * 16,
                reinterpret_cast<const unsigned char*>(
                    data + (int64_t)r * p.C + lane0) + k * 16);
@@ -215,9 +220,9 @@ __device__ __forceinline__ void strided_tile(const TileView<Sym>& v,
   }
 }
 
-// The sampled (SAMPLED) or strided probe over all tiles of the launch;
-// the barriers around a tile: staged; marks and output zeroed; output
-// complete.
+// The sampled (SAMPLED) or strided probe over all tiles of the launch
+// (Sym = uint32_t: the packed layout of bytes, strided); the barriers
+// around a tile: staged; marks and output zeroed; output complete.
 template <bool SAMPLED, typename Sym>
 __device__ __forceinline__ void probe_tiles(
     const Sym* __restrict__ data, const int32_t* __restrict__ bounds,
@@ -258,7 +263,7 @@ __device__ __forceinline__ void probe_tiles(
     v.hrows = t.hrows;
     tpm::tile_place(p, t, SAMPLED, tile, v.word0, v.nwords, v.lane0, v.base);
     for (int i = tid; i < t.TW * t.L; i += nthr) out[i] = 0u;
-    if (SAMPLED) {
+    if constexpr (SAMPLED) {
       for (int i = tid; i < t.TW * t.L; i += nthr) v.mark[i] = 0u;
       if (tid == 0) {
         reinterpret_cast<int*>(smem + t.off_cnt)[0] = 0;
@@ -266,7 +271,7 @@ __device__ __forceinline__ void probe_tiles(
       }
     }
     __syncthreads();
-    if (SAMPLED)
+    if constexpr (SAMPLED)
       sampled_tile(v, wp, p, t, smem, out);
     else
       strided_tile(v, wp, p, t, smem, out);
@@ -298,35 +303,11 @@ __global__ void __launch_bounds__(kMaxThreads) probe_strided_kernel(
   probe_tiles<false, Sym>(data, bounds, words, bits, total, p, t);
 }
 
-// Packed strided probe (tpm::strided_word_packed): one thread per lane,
-// 128 lanes per block; a warp reads 128 bytes (32 words) per word row,
-// and the prep transpose before it moves a quarter of the elements.
-__global__ void __launch_bounds__(kBlockLanes) probe_strided_packed_kernel(
+__global__ void __launch_bounds__(kMaxThreads) probe_strided_packed_kernel(
     const uint32_t* __restrict__ data, const int32_t* __restrict__ bounds,
     const uint32_t* __restrict__ words, int32_t* __restrict__ bits,
-    int32_t* __restrict__ total, const ProbeParams p, int words_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t* wp = words;
-  if (words_in_smem) {  // uniform across the block
-    uint32_t* smem = reinterpret_cast<uint32_t*>(smem_raw);
-    const int n = p.kbanks * p.v * 128;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = words[i];
-    __syncthreads();
-    wp = smem;
-  }
-  const int lane = blockIdx.y * kBlockLanes + threadIdx.x;
-  const int start = bounds[lane];
-  const int end = bounds[p.C + lane];
-  const int n_words = p.T / (32 * p.stride);
-  for (int k = 0; k < kWordsPerThread; ++k) {
-    const int wrow = blockIdx.x * kWordsPerThread + k;
-    if (wrow >= n_words) break;  // uniform across the block
-    const uint32_t acc =
-        tpm::strided_word_packed(data, wp, p, wrow, lane, start, end);
-    bits[(int64_t)wrow * p.C + lane] = (int32_t)acc;
-    const unsigned n = __reduce_add_sync(0xffffffffu, (unsigned)__popc(acc));
-    if ((threadIdx.x & 31) == 0 && n) atomicAdd(total, (int32_t)n);
-  }
+    int32_t* __restrict__ total, const ProbeParams p, const TilePlan t) {
+  probe_tiles<false, uint32_t>(data, bounds, words, bits, total, p, t);
 }
 
 // What a launch asks of the runtime, asked once and kept (the host's
@@ -362,11 +343,12 @@ int current_device(Device& d) {
   return 0;
 }
 
-int plan_for(const ProbeParams& p, int sampled, int sym16, const Device& d,
-             TilePlan& t) {
+// sym_bytes: 1 or 2, or 4 for the packed layout of bytes
+int plan_for(const ProbeParams& p, int sampled, int sym_bytes,
+             const Device& d, TilePlan& t) {
   const long budget =
       d.optin < tpm::kSmemPerBlock ? d.optin : tpm::kSmemPerBlock;
-  return tpm::plan_tiles(p, sampled, sym16 ? 2 : 1, budget, t);
+  return tpm::plan_tiles(p, sampled, sym_bytes, budget, t);
 }
 
 template <typename Sym>
@@ -440,7 +422,7 @@ int tpm_probe_sampled(const void* data, const void* bounds, const void* words,
     return tpm::kBadArgs;
   Device d;
   int rc = current_device(d);
-  if (!rc) rc = plan_for(p, 1, sym16, d, t);
+  if (!rc) rc = plan_for(p, 1, sym16 ? 2 : 1, d, t);
   if (rc) return rc;
   const auto* bd = static_cast<const int32_t*>(bounds);
   const auto* wd = static_cast<const uint32_t*>(words);
@@ -467,7 +449,7 @@ int tpm_probe_strided(const void* data, const void* bounds, const void* words,
     return tpm::kBadArgs;
   Device d;
   int rc = current_device(d);
-  if (!rc) rc = plan_for(p, 0, sym16, d, t);
+  if (!rc) rc = plan_for(p, 0, sym16 ? 2 : 1, d, t);
   if (rc) return rc;
   const auto* bd = static_cast<const int32_t*>(bounds);
   const auto* wd = static_cast<const uint32_t*>(words);
@@ -488,48 +470,50 @@ int tpm_probe_strided_packed(const void* data, const void* bounds,
                              int v, int fold, int sym16, const void* mix1,
                              const void* mix2, void* stream) {
   ProbeParams p;
+  TilePlan t;
   if (tpm::fill_params(p, T, C, q, stride, kbanks, v, 0, fold,
                        static_cast<const int64_t*>(mix1),
                        static_cast<const int64_t*>(mix2)) ||
-      stride % 4 || q > stride || sym16)
+      stride % 4 || q > stride || sym16 || !aligned16(data, bounds, words))
     return tpm::kBadArgs;
-  const size_t bytes = (size_t)p.kbanks * p.v * 128 * sizeof(uint32_t);
-  const size_t smem = bytes <= kSmemWordsBytes ? bytes : 0;
-  const int n_words = p.T / (32 * p.stride);
-  const dim3 grid((n_words + kWordsPerThread - 1) / kWordsPerThread,
-                  p.C / kBlockLanes);
-  probe_strided_packed_kernel<<<grid, kBlockLanes, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(data), static_cast<const int32_t*>(bounds),
+  Device d;
+  int rc = current_device(d);
+  if (!rc) rc = plan_for(p, 0, 4, d, t);
+  if (rc) return rc;
+  return launch_tiled<uint32_t>(
+      probe_strided_packed_kernel, data, static_cast<const int32_t*>(bounds),
       static_cast<const uint32_t*>(words), static_cast<int32_t*>(bits),
-      static_cast<int32_t*>(total), p, smem > 0);
-  return (int)cudaGetLastError();
+      static_cast<int32_t*>(total), p, t, d,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The launch plan of the sampled (sampled=1) or strided kernel on this
 // device: out[0..6] = lanes per tile, output words per tile, tiles, bank
 // words in shared memory (1/0), dynamic shared memory bytes, threads per
-// block, blocks (the grid). Returns a CUDA error code or -1.
+// block, blocks (the grid). layout: 0 uint8, 1 uint16 symbols, 2 the
+// packed layout of bytes (strided, stride % 4 == 0). Returns a CUDA error
+// code or -1.
 int tpm_probe_plan(int sampled, int T, int C, int q, int stride, int kbanks,
-                   int v, int w, int sym16, void* out) {
+                   int v, int w, int layout, void* out) {
   ProbeParams p;
   TilePlan t;
   int64_t zeros[tpm::kMaxQ] = {0};
   if (tpm::fill_params(p, T, C, q, sampled ? 1 : stride, kbanks, v,
                        sampled ? w : 0, 0, zeros, zeros) ||
-      (sampled && w < 1))
+      (sampled && w < 1) || layout < 0 || layout > 2 ||
+      (layout == 2 && (sampled || stride % 4 || q > stride)))
     return tpm::kBadArgs;
   int grid = 0;
   Device d;
   int rc = current_device(d);
-  if (!rc) rc = plan_for(p, sampled, sym16, d, t);
-  if (!rc)
-    rc = grid_for(
-        sampled ? (sym16 ? (const void*)probe_sampled_kernel<uint16_t>
-                         : (const void*)probe_sampled_kernel<uint8_t>)
-                : (sym16 ? (const void*)probe_strided_kernel<uint16_t>
-                         : (const void*)probe_strided_kernel<uint8_t>),
-        t, d, grid);
+  if (!rc) rc = plan_for(p, sampled, layout == 2 ? 4 : layout + 1, d, t);
+  const void* kernel =
+      layout == 2 ? (const void*)probe_strided_packed_kernel
+      : sampled   ? (layout ? (const void*)probe_sampled_kernel<uint16_t>
+                            : (const void*)probe_sampled_kernel<uint8_t>)
+                  : (layout ? (const void*)probe_strided_kernel<uint16_t>
+                            : (const void*)probe_strided_kernel<uint8_t>);
+  if (!rc) rc = grid_for(kernel, t, d, grid);
   if (rc) return rc;
   int* o = static_cast<int*>(out);
   o[0] = t.L;

@@ -70,11 +70,6 @@ TPM_HD bool probe_bank_range(const uint32_t* words, const ProbeParams& p,
   return true;
 }
 
-TPM_HD bool probe_banks(const uint32_t* words, const ProbeParams& p,
-                        uint32_t m1, uint32_t m2) {
-  return probe_bank_range(words, p, m1, m2, 0, p.kbanks);
-}
-
 // The lane masks of the two reference kernels. Sampled rows must lie in
 // [start_t, end_t - q]: [lo, hi) of sampled_span; strided rows only need
 // row + q <= end_t (halo rows below start_t ARE probed — the reference's
@@ -90,56 +85,16 @@ TPM_HD bool strided_row_valid(int row, int start, int end, const ProbeParams& p)
   return row + p.q <= end && end > start && row + p.q <= p.T;
 }
 
-TPM_HD uint32_t pack_bit(uint32_t acc, bool hit, int b) {
-  return acc | ((uint32_t)hit << b);
-}
-
-// ---------------------------------------------- the packed strided probe
-
-// m1/m2 of the gram at symbol row `row` (a multiple of 4) of the PACKED
-// layout: [T/4, C] uint32 words of 4 little-endian symbols, so symbol
-// row r is byte r % 4 of word row r / 4. Each word is loaded once and its
-// bytes are taken with logical shifts.
-TPM_HD void gram_hashes_packed(const uint32_t* data, const ProbeParams& p,
-                               int row, int lane, uint32_t& m1,
-                               uint32_t& m2) {
-  m1 = 0u;
-  m2 = 0u;
-  const uint32_t* col = data + (int64_t)(row >> 2) * p.C + lane;
-  uint32_t word = 0u;
-  for (int i = 0; i < p.q; ++i) {
-    if ((i & 3) == 0) word = col[(int64_t)(i >> 2) * p.C];
-    uint32_t s = (word >> (8 * (i & 3))) & 255u;
-    if (p.fold) s = fold_ascii(s);
-    m1 += s * p.mix1[i];
-    m2 += s * p.mix2[i];
-  }
-}
-
-// One output word of the packed strided probe (stride % 4 == 0, so every
-// tested row starts a word): bits j of the grams at rows
-// (32*wrow + j) * stride of `lane`. p.T counts symbol rows, not word rows.
-TPM_HD uint32_t strided_word_packed(const uint32_t* data,
-                                    const uint32_t* words,
-                                    const ProbeParams& p, int wrow, int lane,
-                                    int start, int end) {
-  uint32_t acc = 0u;
-  for (int j = 0; j < 32; ++j) {
-    const int row = (wrow * 32 + j) * p.stride;
-    if (!strided_row_valid(row, start, end, p)) continue;
-    uint32_t m1, m2;
-    gram_hashes_packed(data, p, row, lane, m1, m2);
-    acc = pack_bit(acc, probe_banks(words, p, m1, m2), j);
-  }
-  return acc;
-}
-
-// ------------------------------ the tiles of the sampled and strided probe
+// ------------------------------------------------- the tiles of the probes
 //
-// Both kernels cut the bitmap into tiles of TW output words (32 rows each)
+// The kernels cut the bitmap into tiles of TW output words (32 rows each)
 // by L adjacent lanes. A tile's symbol rows, with their context, are
 // staged in shared memory once ([rows][L], 16-byte copies), with the
-// tile's lane bounds.
+// tile's lane bounds. The packed strided kernel (bytes in [T/4, C] words
+// of 4 little-endian bytes, stride % 4 == 0) stages the tile's word rows
+// as they are ([ceil(rows / 4)][L] words; its tiles start on a word row,
+// at 32 * word0 * stride) and reads byte r % 4 of word row r / 4 for
+// symbol row r (tile_gram): the strided steps are the same.
 //
 // The sampled kernel first marks the rows the winnowing rule tests, for
 // the whole tile, van Herk / Gil-Werman style (O(1) per row whatever w):
@@ -195,8 +150,16 @@ constexpr long kSmemPerSM = 233472;     // of which 1 KB per block reserved
 
 inline long align16(long x) { return (x + 15) & ~15L; }
 
+// Bytes of one staged buffer of `rows` symbol rows x L lanes of
+// `sym_bytes` each; sym_bytes 4 is the packed layout (a word per 4 rows).
+inline long staged_bytes(int rows, int L, int sym_bytes) {
+  return sym_bytes == 4 ? (long)((rows + 3) / 4) * L * 4
+                        : (long)rows * L * sym_bytes;
+}
+
 // The tiling of one launch under a shared-memory budget of `budget` bytes
-// per block. In order of preference: bank words in shared memory, two
+// per block, for symbols of `sym_bytes` (1, 2, or 4: packed bytes, strided
+// only). In order of preference: bank words in shared memory, two
 // blocks per SM, then (sampled) the tallest tile, TW 2 before 1 (less
 // context per output row), then the widest lane tile; else the same with
 // the words read from global memory (through L2). Returns kBadArgs if
@@ -219,7 +182,7 @@ inline int plan_tiles(const ProbeParams& p, int sampled, int sym_bytes,
           long off = in_smem ? align16(words_bytes) : 0;
           for (int b = 0; b < 2; ++b) {
             t.off_buf[b] = (int)off;
-            off += align16((long)rows * L * sym_bytes);
+            off += align16(staged_bytes(rows, L, sym_bytes));
             t.off_bounds[b] = (int)off;
             off += 8L * L;
           }
@@ -259,10 +222,11 @@ inline int plan_tiles(const ProbeParams& p, int sampled, int sym_bytes,
   return kBadArgs;
 }
 
-// One staged tile, as the steps see it.
+// One staged tile, as the steps see it. Sym is uint8_t or uint16_t, or
+// uint32_t for the packed layout of bytes.
 template <typename Sym>
 struct TileView {
-  const Sym* buf;        // [rows][L] staged symbols
+  const Sym* buf;        // [rows][L] staged symbols ([rows / 4][L] words)
   const int32_t* start;  // [L] span starts of the tile's lanes
   const int32_t* end;    // [L] span ends
   uint32_t* sel;         // [hrows][L] selection hashes (sampled)
@@ -296,18 +260,34 @@ TPM_HD bool tile_row_needed(const ProbeParams& p, int sampled, int i) {
   return sampled || p.q >= p.stride || i % p.stride < p.q;
 }
 
+// Staged rows of a buffer: one per symbol row, or (Sym = uint32_t, the
+// packed layout) one per 4 symbol rows.
+template <typename Sym>
+TPM_HD int rows_per_staged_row() {
+  return sizeof(Sym) == 4 ? 4 : 1;
+}
+
 // m1 and m2 of the gram at staged row i of the tile's lane `lane`: each
-// symbol is read from shared memory once per gram.
+// symbol (packed: each word) is read from shared memory once per gram.
+// A packed gram starts a word (i is a multiple of the stride).
 template <typename Sym>
 TPM_HD void tile_gram(const TileView<Sym>& v, const ProbeParams& p, int i,
                       int lane, uint32_t& m1, uint32_t& m2) {
-  const Sym* col = v.buf + (i << v.lshift) + lane;
+  const int per = rows_per_staged_row<Sym>();
+  const Sym* col = v.buf + ((i / per) << v.lshift) + lane;
+  uint32_t word = 0u;
   m1 = 0u;
   m2 = 0u;
   TPM_UNROLL
   for (int k = 0; k < kMaxQ; ++k) {
     if (k < p.q) {
-      uint32_t s = col[k << v.lshift];
+      uint32_t s;
+      if (per == 4) {
+        if ((k & 3) == 0) word = col[(k >> 2) << v.lshift];
+        s = (word >> (8 * (k & 3))) & 255u;
+      } else {
+        s = col[k << v.lshift];
+      }
       if (p.fold) s = fold_ascii(s);
       m1 += s * p.mix1[k];
       m2 += s * p.mix2[k];

@@ -5,10 +5,10 @@
 // tests hold the kernels' arithmetic to the reference on a machine without
 // a GPU. Same arguments and outputs as the kernels' entry points, minus
 // the stream, plus `mode`: 0 strided, 1 sampled, 2 packed strided (data is
-// then [T/4, C] uint32 and T counts symbol rows), and `budget`, the
-// shared-memory bytes per block the tiling may plan for (0: Hopper's 227
-// KB; smaller budgets give narrower tiles). `sym16` selects uint16 symbols
-// (modes 0 and 1). Returns 0 or tpm::kBadArgs.
+// then [T/4, C] uint32, staged as word rows, and T counts symbol rows),
+// and `budget`, the shared-memory bytes per block the tiling may plan for
+// (0: Hopper's 227 KB; smaller budgets give narrower tiles). `sym16`
+// selects uint16 symbols (modes 0 and 1). Returns 0 or tpm::kBadArgs.
 #include <stdint.h>
 #include <string.h>
 
@@ -22,14 +22,17 @@ using tpm::ProbeParams;
 using tpm::TilePlan;
 using tpm::TileView;
 
-// The sampled or strided kernel's loop over tiles, for one block that
-// takes every tile. Staged rows that no step reads are left holding the
-// previous tile's symbols (or the fill byte), as in shared memory.
+// The kernels' loop over tiles, for one block that takes every tile
+// (Sym = uint32_t: the packed layout, staged as word rows). Staged rows
+// that no step reads are left holding the previous tile's symbols (or the
+// fill byte), as in shared memory.
 template <typename Sym>
 int64_t probe_tiles(int sampled, const Sym* data, const int32_t* bd,
                     const uint32_t* wd, int32_t* out, const ProbeParams& p,
                     const TilePlan& t) {
-  std::vector<Sym> buf((size_t)t.rows * t.L, (Sym)0xA5A5);
+  const int per = tpm::rows_per_staged_row<Sym>();
+  const int rows = (t.rows + per - 1) / per;
+  std::vector<Sym> buf((size_t)rows * t.L, (Sym)0xA5A5A5A5u);
   std::vector<int32_t> bounds(2 * t.L);
   std::vector<uint32_t> sel((size_t)t.hrows * t.L);
   std::vector<uint8_t> pre(sel.size()), suf(sel.size());
@@ -41,9 +44,11 @@ int64_t probe_tiles(int sampled, const Sym* data, const int32_t* bd,
   for (int tile = 0; tile < t.n_tiles; ++tile) {
     TileView<Sym> v;
     tpm::tile_place(p, t, sampled, tile, v.word0, v.nwords, v.lane0, v.base);
-    for (int i = 0; i < t.rows; ++i) {  // stage
-      const int r = v.base + i;
-      if (r < 0 || r >= p.T || !tpm::tile_row_needed(p, sampled, i)) continue;
+    for (int i = 0; i < rows; ++i) {  // stage
+      const int r = v.base / per + i;
+      if (r < 0 || r >= p.T / per ||
+          !tpm::tile_row_needed(p, sampled, i * per))
+        continue;
       memcpy(&buf[(size_t)i * t.L], data + (int64_t)r * p.C + v.lane0,
              t.L * sizeof(Sym));
     }
@@ -99,23 +104,6 @@ int64_t probe_tiles(int sampled, const Sym* data, const int32_t* bd,
   return ones;
 }
 
-// The packed kernel's per-thread code: thread (lane, word) of its grid
-// becomes one loop iteration.
-int64_t probe_packed(const uint32_t* data, const int32_t* bd,
-                     const uint32_t* wd, int32_t* out, const ProbeParams& p) {
-  int64_t n = 0;
-  const int n_words = p.T / (32 * p.stride);
-  for (int wrow = 0; wrow < n_words; ++wrow) {
-    for (int lane = 0; lane < p.C; ++lane) {
-      const uint32_t acc = tpm::strided_word_packed(
-          data, wd, p, wrow, lane, bd[lane], bd[p.C + lane]);
-      out[(int64_t)wrow * p.C + lane] = (int32_t)acc;
-      n += __builtin_popcount(acc);
-    }
-  }
-  return n;
-}
-
 int params_for(int mode, ProbeParams& p, int T, int C, int q, int stride,
                int kbanks, int v, int w, int fold, int sym16,
                const void* mix1, const void* mix2) {
@@ -144,34 +132,37 @@ extern "C" int tpm_probe_host(int mode, const void* data,
   const auto* bd = static_cast<const int32_t*>(bounds);
   const auto* wd = static_cast<const uint32_t*>(words);
   auto* out = static_cast<int32_t*>(bits);
+  if (tpm::plan_tiles(p, mode == 1, mode == 2 ? 4 : sym16 ? 2 : 1,
+                      budget > 0 ? budget : tpm::kSmemPerBlock, t))
+    return tpm::kBadArgs;
   int64_t n;
-  if (mode == 2) {
-    n = probe_packed(static_cast<const uint32_t*>(data), bd, wd, out, p);
-  } else {
-    if (tpm::plan_tiles(p, mode, sym16 ? 2 : 1,
-                        budget > 0 ? budget : tpm::kSmemPerBlock, t))
-      return tpm::kBadArgs;
-    n = sym16 ? probe_tiles(mode, static_cast<const uint16_t*>(data), bd, wd,
-                            out, p, t)
-              : probe_tiles(mode, static_cast<const uint8_t*>(data), bd, wd,
-                            out, p, t);
-  }
+  if (mode == 2)
+    n = probe_tiles(0, static_cast<const uint32_t*>(data), bd, wd, out, p, t);
+  else if (sym16)
+    n = probe_tiles(mode, static_cast<const uint16_t*>(data), bd, wd, out, p,
+                    t);
+  else
+    n = probe_tiles(mode, static_cast<const uint8_t*>(data), bd, wd, out, p,
+                    t);
   *static_cast<int32_t*>(total) = (int32_t)n;
   return 0;
 }
 
 // The tiling the kernels would take under `budget` (0: 227 KB): out[0..5]
 // = lanes per tile, output words per tile, tiles, bank words in shared
-// memory (1/0), shared-memory bytes, threads per block.
+// memory (1/0), shared-memory bytes, threads per block. layout: 0 uint8,
+// 1 uint16 symbols, 2 the packed layout of bytes (strided).
 extern "C" int tpm_probe_plan_host(int sampled, int T, int C, int q,
                                    int stride, int kbanks, int v, int w,
-                                   int sym16, long budget, void* out) {
+                                   int layout, long budget, void* out) {
   ProbeParams p;
   TilePlan t;
   const int64_t zeros[tpm::kMaxQ] = {0};
-  if (params_for(sampled ? 1 : 0, p, T, C, q, sampled ? 1 : stride, kbanks,
-                 v, w, 0, sym16, zeros, zeros) ||
-      tpm::plan_tiles(p, sampled, sym16 ? 2 : 1,
+  const int mode = layout == 2 ? 2 : sampled ? 1 : 0;
+  if (layout < 0 || layout > 2 || (layout == 2 && sampled) ||
+      params_for(mode, p, T, C, q, sampled ? 1 : stride, kbanks, v, w, 0,
+                 layout == 1, zeros, zeros) ||
+      tpm::plan_tiles(p, sampled, layout == 2 ? 4 : layout + 1,
                       budget > 0 ? budget : tpm::kSmemPerBlock, t))
     return tpm::kBadArgs;
   int* o = static_cast<int*>(out);

@@ -111,42 +111,127 @@ struct DenseParams {
   int halo;  // reports only at t >= halo
   int R;     // result slots per lane
   int G;     // match groups (gcounts length)
+  int warm;  // warm-up rows of a sub-span: max_pat_len - 1
+  int S;     // sub-spans per lane
 };
 
-// The reference's dense lane walk (ops/match_xla.py _scan_kernel) for
-// lane c of the time-major batch: state 0 at t = 0, advancing only inside
-// [start_t, end_t), so the walk runs over that span alone. A report is a
-// final entry at t >= halo: counts[c] counts them all, the first R fill
-// slot_state/slot_pos[c, :] with (state, t - halo), and, when state_gid is
-// given, every report adds one to gcounts[state_gid[state]].
+// The reference's dense lane walk (ops/match_xla.py _scan_kernel), lane c
+// of the time-major batch: state 0 at t = 0, advancing only inside
+// [start_t, end_t). A report is a final entry at t >= halo: counts[c]
+// counts them all, the first R fill slot_state/slot_pos[c, :] with
+// (state, t - halo) in time order, and, when state_gid is given, every
+// report adds one to gcounts[state_gid[state]].
+//
+// The lane is cut into S sub-spans. An Aho-Corasick state is the longest
+// suffix of the input read so far that is a prefix of a pattern, so its
+// depth is at most max_pat_len: a walk from the root that starts
+// warm = max_pat_len - 1 rows before a row p is in the lane walk's state
+// from p on (the argument of the lanes' halo, MATCHING.md). Sub-span j
+// reports on the rows [halo + j*P, halo + (j+1)*P) of the batch, P =
+// dense_piece(p), inside the lane's span; it walks from the root from
+// `warm` rows before its first such row, clipped at start_t (where the
+// lane walk starts from the root too). Its first R reports are kept in
+// `keep` (keep_index); dense_merge_piece then moves the ones among the
+// lane's first R to their slots.
+
+TPM_HD int dense_piece(const DenseParams& p) {
+  const int span = p.T > p.halo ? p.T - p.halo : 0;
+  return (int)(((int64_t)span + p.S - 1) / p.S);
+}
+
+// keep holds S * R * C (state, position) pairs: states first, then
+// positions; entry m of sub-span j of lane c at [(j * R + m) * C + c].
+TPM_HD int64_t keep_index(const DenseParams& p, int c, int j, int m) {
+  return ((int64_t)j * p.R + m) * p.C + c;
+}
+
+// Walks sub-span j of lane c; returns its reports.
 template <typename TT, typename Sym>
-TPM_HD void dense_walk_lane(const TT* table, const Sym* data_tm,
-                            const int32_t* bounds, const int32_t* state_gid,
-                            const DenseParams& p, int c, int32_t* counts,
-                            int32_t* slot_state, int32_t* slot_pos,
-                            int32_t* gcounts) {
-  const int start = bounds[c];
-  const int end = bounds[p.C + c];
-  const int t0 = start > 0 ? start : 0;
-  const int t1 = end < p.T ? end : p.T;
+TPM_HD int32_t dense_walk_piece(const TT* table, const Sym* data_tm,
+                                const int32_t* bounds,
+                                const int32_t* state_gid,
+                                const DenseParams& p, int c, int j,
+                                int32_t* keep, int32_t* gcounts) {
+  const int start = bounds[c] > 0 ? bounds[c] : 0;
+  const int end = bounds[p.C + c] < p.T ? bounds[p.C + c] : p.T;
+  const int64_t piece = dense_piece(p);
+  const int64_t lo64 = p.halo + j * piece;
+  const int lo = lo64 < start ? start : (int)(lo64 < p.T ? lo64 : p.T);
+  const int hi = lo64 + piece < end ? (int)(lo64 + piece) : end;
+  if (lo >= hi) return 0;
+  int t = lo - p.warm > start ? lo - p.warm : start;
+  const int64_t pos_base = (int64_t)p.S * p.R * p.C;
   int32_t state = 0;
-  int32_t count = 0;
-  for (int t = t0; t < t1; ++t) {
-    const int32_t raw = dfa_step(table, p.A, state,
-                                 (int32_t)data_tm[(int64_t)t * p.C + c], true);
-    if (raw < 0 && t >= p.halo) {
-      if (count < p.R) {
-        slot_state[(int64_t)c * p.R + count] = state;
-        slot_pos[(int64_t)c * p.R + count] = t - p.halo;
+  int32_t n = 0;
+  // the next row's symbol is loaded before this row's table entry, so its
+  // latency is off the chain of dependent table loads
+  int32_t next = data_tm[(int64_t)t * p.C + c];
+  for (; t < hi; ++t) {
+    const int32_t sym = next;
+    if (t + 1 < hi) next = data_tm[(int64_t)(t + 1) * p.C + c];
+    const int32_t raw = dfa_step(table, p.A, state, sym, true);
+    if (raw < 0 && t >= lo) {
+      if (n < p.R) {
+        keep[keep_index(p, c, j, n)] = state;
+        keep[pos_base + keep_index(p, c, j, n)] = t - p.halo;
       }
-      ++count;
+      ++n;
       if (gcounts) {
         const int32_t gid = state_gid[state];
         if (gid >= 0 && gid < p.G) add_one(gcounts + gid);
       }
     }
   }
-  counts[c] = count;
+  return n;
+}
+
+// Sub-span j of lane c, with n reports and `prefix` reports in the lane's
+// sub-spans before it: its reports that are among the lane's first R go
+// to slots prefix, prefix + 1, ...
+TPM_HD void dense_merge_piece(const DenseParams& p, int c, int j,
+                              int32_t prefix, int32_t n, const int32_t* keep,
+                              int32_t* slot_state, int32_t* slot_pos) {
+  const int64_t pos_base = (int64_t)p.S * p.R * p.C;
+  for (int32_t m = 0; m < n && prefix + m < p.R; ++m) {
+    slot_state[(int64_t)c * p.R + prefix + m] = keep[keep_index(p, c, j, m)];
+    slot_pos[(int64_t)c * p.R + prefix + m] =
+        keep[pos_base + keep_index(p, c, j, m)];
+  }
+}
+
+// The launch of the dense walk: a block is 32 adjacent lanes x S sub-spans,
+// warp j taking sub-span j of its 32 lanes (a step of a warp reads 32
+// adjacent symbols of one row), so a lane's merge is a scan over the
+// block's warps in shared memory.
+constexpr int kMaxSubspans = 32;  // warps of a block of 1024 threads
+constexpr int kWarpsPerSM = 32;   // the warps per SM the plan aims for
+
+struct DensePlan {
+  int S;        // sub-spans per lane
+  int steps;    // the most steps of a thread: its piece and the warm-up
+  int threads;  // threads per block: 32 * S
+  int blocks;   // ceil(C / 32)
+};
+
+// S, a power of two: the fewest sub-spans that put kWarpsPerSM warps on
+// each of n_sm SMs, at most kMaxSubspans, and no more than keep the
+// warm-up within a quarter of a piece. A lane shorter than its S pieces
+// has empty ones.
+inline DensePlan dense_plan(int T, int C, int halo, int warm, int n_sm) {
+  const int64_t span = T > halo ? T - halo : 0;
+  const int64_t lane_warps = (C + 31) / 32;
+  int S = 1;
+  while (S < kMaxSubspans && lane_warps * S < (int64_t)kWarpsPerSM * n_sm) {
+    const int64_t piece = (span + 2 * S - 1) / (2 * S);
+    if (4 * (int64_t)warm > piece) break;
+    S *= 2;
+  }
+  DensePlan d;
+  d.S = S;
+  d.steps = (int)((span + S - 1) / S) + warm;
+  d.threads = 32 * S;
+  d.blocks = (int)lane_warps;
+  return d;
 }
 
 inline bool window_params_ok(const WindowParams& p) {
@@ -157,7 +242,8 @@ inline bool window_params_ok(const WindowParams& p) {
 
 inline bool dense_params_ok(const DenseParams& p) {
   return p.T >= 0 && p.C > 0 && p.A > 0 && p.halo >= 0 && p.R >= 0 &&
-         p.G >= 0;
+         p.G >= 0 && p.warm >= 0 && p.S >= 1 &&
+         (int64_t)p.S * p.R * p.C < ((int64_t)1 << 40);
 }
 
 }  // namespace tpm

@@ -70,6 +70,7 @@ def best_scan_total_fn(
             dt.table_flat, data.t().contiguous(),
             torch.stack([start_t, end_t]).to(torch.int32),
             alphabet_size=dt.alphabet_size, halo=halo, max_results=16,
+            max_pat_len=dt.max_pat_len,
         )
         return counts.sum().to(torch.int32)
 

@@ -145,7 +145,8 @@ def scan_and_compact(table: DeviceTable, data, bounds, *, halo: int,
     counts, slot_state, slot_pos, gcounts = dense_walk(
         table.table_flat, data.t().contiguous(), bounds,
         alphabet_size=table.alphabet_size, halo=halo,
-        max_results=max_results, state_gid=table.state_gid,
+        max_results=max_results, max_pat_len=table.max_pat_len,
+        state_gid=table.state_gid,
         num_groups=table.num_groups,
     )
     meta, packed = _compact(counts, slot_state, slot_pos, table.state_gid,

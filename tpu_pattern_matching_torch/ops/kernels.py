@@ -7,11 +7,12 @@ kernel, bound with ``ctypes``:
   the reference's ``ops/bloom.py``, all launched by ``_probe_bits_jit``:
   ``_make_sampled_kernel`` (sampled), the unpacked path of
   ``_make_probe_kernel`` (strided) and its uint32-packed path
-  (strided_packed).
+  (strided_packed), all three on one tiled loop.
 - ``dfa_walk.cu`` — the two DFA walks that the reference writes as XLA
   ``lax.scan`` loops: the windowed candidate walk of device verify
   (``ops/verify_device.py`` stage 3) and the dense engine's lane walk
-  (``ops/match_xla.py``).
+  (``ops/match_xla.py``), which walks each lane in sub-spans
+  (``dense_plan``).
 
 Symbols are uint8 (bytes) or uint16 (the ushort alphabet of 2048, the
 packet-metadata path): every kernel but the packed probe has a build for
@@ -176,7 +177,10 @@ def _bind_walk(lib, stream: bool) -> None:
     fn.argtypes = [P, I, P, I] + [P] * 4 + [I] * 8 + [P] * 2 + tail
     fn.restype = I
     fn = getattr(lib, "tpm_dense_walk" + suffix)
-    fn.argtypes = [P, I, P, I] + [P] * 2 + [I] * 6 + [P] * 4 + tail
+    fn.argtypes = [P, I, P, I] + [P] * 2 + [I] * 8 + [P] * 5 + tail
+    fn.restype = I
+    fn = getattr(lib, "tpm_dense_plan" + suffix)
+    fn.argtypes = [I] * (4 if stream else 5) + [P]
     fn.restype = I
     if stream:
         lib.tpm_walk_error_string.argtypes = [I]
@@ -358,10 +362,11 @@ PLAN_KEYS = ("lanes", "words", "tiles", "words_in_smem", "smem_bytes",
 
 
 def probe_plan(data_tm, cfg) -> dict:
-    """The tiling the sampled or strided kernel takes for this launch on
-    the current CUDA device: lanes and output words per tile, tiles, bank
-    words in shared memory or not, the dynamic shared memory it opts into,
-    threads per block and blocks (``PLAN_KEYS``)."""
+    """The tiling the probe kernel of ``cfg``'s mode takes for this launch
+    on the current CUDA device (the packed kernel's for an int32
+    ``data_tm``): lanes and output words per tile, tiles, bank words in
+    shared memory or not, the dynamic shared memory it opts into, threads
+    per block and blocks (``PLAN_KEYS``)."""
     T, Cp, sym16 = _check(data_tm, bounds=torch.zeros(
         (2, data_tm.shape[1]), dtype=torch.int32, device=data_tm.device),
         words=torch.zeros((cfg.kbanks, cfg.v, 128), dtype=torch.int32,
@@ -369,20 +374,23 @@ def probe_plan(data_tm, cfg) -> dict:
     lib = cuda_library()
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(data_tm.device):
-        rc = lib.tpm_probe_plan(int(cfg.sampled), T, Cp, cfg.q, cfg.stride,
-                                cfg.kbanks, cfg.v, cfg.w, sym16, out)
+        rc = lib.tpm_probe_plan(  # layout 2: packed bytes
+            int(cfg.sampled), T, Cp, cfg.q, cfg.stride, cfg.kbanks, cfg.v,
+            cfg.w, 2 if data_tm.dtype == torch.int32 else sym16, out)
     _raise_on(rc, "probe plan", lib.tpm_error_string)
     return dict(zip(PLAN_KEYS, out))
 
 
-def probe_plan_on_host(T, Cp, cfg, sym16=0, smem_budget=0) -> dict:
+def probe_plan_on_host(T, Cp, cfg, sym16=0, smem_budget=0,
+                       packed=False) -> dict:
     """The tiling of ``probe_plan`` (no ``blocks``) under a shared-memory
     budget per block (0: Hopper's 227 KB), from the kernels' own planner
-    compiled for the CPU."""
+    compiled for the CPU; ``packed``: the packed kernel's (T symbol
+    rows)."""
     out = (ctypes.c_int * 6)()
     rc = host_library().tpm_probe_plan_host(
         int(cfg.sampled), T, Cp, cfg.q, cfg.stride, cfg.kbanks, cfg.v,
-        cfg.w, sym16, smem_budget, out)
+        cfg.w, 2 if packed else sym16, smem_budget, out)
     if rc:
         raise ValueError(f"no tiling fits {smem_budget} B for {cfg}")
     return dict(zip(PLAN_KEYS, out))
@@ -392,7 +400,7 @@ def probe_on_host(data_tm, bounds, words, cfg, smem_budget: int = 0):
     """The kernels' own tile code run on the CPU, tile by tile (a test
     harness, not a kernel): CPU tensors in, ``(bits, total)`` CPU tensors
     out. ``smem_budget`` (bytes per block, 0: Hopper's 227 KB) sets the
-    tiling the sampled and strided kernels would plan for."""
+    tiling the kernels would plan for."""
     T, Cp, sym16 = _check(data_tm, bounds, words, cfg)
     bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32)
     total = torch.zeros(1, dtype=torch.int32)
@@ -489,12 +497,48 @@ def window_walk_on_host(table_flat, data_flat, bounds, lane, row, n_valid,
     return rep, state
 
 
-def _dense_args(table_flat, data_tm, bounds, *, alphabet_size, halo,
-                max_results, state_gid=None, num_groups=0):
+DENSE_PLAN_KEYS = ("subspans", "steps", "threads", "blocks")
+H100_SMS = 132  # the plan of dense_walk_on_host and dense_plan_on_host
+
+
+def dense_plan(data_tm, *, halo, max_pat_len) -> dict:
+    """The launch plan of the dense walk on ``data_tm [T, C]`` on the
+    current CUDA device (``DENSE_PLAN_KEYS``): sub-spans per lane, the most
+    steps of a thread with its warm-up, threads per block, blocks."""
+    T, C = data_tm.shape
+    lib = walk_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(data_tm.device):
+        rc = lib.tpm_dense_plan(T, C, halo, max_pat_len, out)
+    _raise_on(rc, "dense plan", lib.tpm_walk_error_string)
+    return dict(zip(DENSE_PLAN_KEYS, out))
+
+
+def dense_plan_on_host(T, C, *, halo, max_pat_len, n_sm=H100_SMS) -> dict:
+    """``dense_plan`` for a card of ``n_sm`` SMs, from the kernels' own
+    planner compiled for the CPU."""
+    out = (ctypes.c_int * 4)()
+    if walk_host_library().tpm_dense_plan_host(T, C, halo, max_pat_len,
+                                               n_sm, out):
+        raise ValueError(f"no dense plan for T={T} C={C} halo={halo} "
+                         f"max_pat_len={max_pat_len} n_sm={n_sm}")
+    return dict(zip(DENSE_PLAN_KEYS, out))
+
+
+def _dense_args(table_flat, data_tm, bounds, subspans, *, alphabet_size,
+                halo, max_results, max_pat_len, state_gid=None,
+                num_groups=0):
+    """Validates a dense-walk launch of ``subspans`` sub-spans per lane;
+    returns (its arguments, the outputs, the scratch of its sub-spans'
+    first reports), allocated on the inputs' device. The caller holds the
+    scratch until the launch is enqueued (the arguments hold only its
+    address)."""
     t16 = _check_table(table_flat, alphabet_size)
     sym16 = _sym16(data_tm, "data_tm")
     if data_tm.dim() != 2:
         raise ValueError(f"data_tm must be 2-D, got {tuple(data_tm.shape)}")
+    if max_pat_len < 1:
+        raise ValueError(f"max_pat_len must be at least 1, got {max_pat_len}")
     T, C = data_tm.shape
     _check_i32("bounds", bounds, (2, C))
     tensors = dict(table_flat=table_flat, data_tm=data_tm, bounds=bounds)
@@ -509,24 +553,30 @@ def _dense_args(table_flat, data_tm, bounds, *, alphabet_size, halo,
     slot_pos = torch.zeros((C, R), dtype=torch.int32, device=dev)
     gcounts = (None if state_gid is None else
                torch.zeros(num_groups, dtype=torch.int32, device=dev))
+    keep = torch.empty(max(1, 2 * subspans * R * C), dtype=torch.int32,
+                       device=dev)
     args = (table_flat.data_ptr(), t16, data_tm.data_ptr(), sym16,
             bounds.data_ptr(),
             None if state_gid is None else state_gid.data_ptr(),
-            T, C, alphabet_size, halo, R, num_groups, counts.data_ptr(),
-            slot_state.data_ptr(), slot_pos.data_ptr(),
-            None if gcounts is None else gcounts.data_ptr())
-    return args, (counts, slot_state, slot_pos, gcounts)
+            T, C, alphabet_size, halo, R, num_groups, max_pat_len, subspans,
+            counts.data_ptr(), slot_state.data_ptr(), slot_pos.data_ptr(),
+            None if gcounts is None else gcounts.data_ptr(), keep.data_ptr())
+    return args, (counts, slot_state, slot_pos, gcounts), keep
 
 
 def launch_dense_walk(table_flat, data_tm, bounds, **kw):
     """Launch the dense lane walk (``ops.match_xla.dense_walk`` has the
-    contract) for ``data_tm``'s symbol width; CUDA tensors only. Returns
-    ``(counts [C], slot_state [C, R], slot_pos [C, R], gcounts [G] or
-    None)`` without synchronising."""
+    contract) for ``data_tm``'s symbol width, in the sub-spans of
+    ``dense_plan``; CUDA tensors only. Returns ``(counts [C], slot_state
+    [C, R], slot_pos [C, R], gcounts [G] or None)`` without
+    synchronising."""
     if not table_flat.is_cuda:
         raise ValueError(f"launch_dense_walk needs CUDA tensors, got "
                          f"{table_flat.device}")
-    args, outs = _dense_args(table_flat, data_tm, bounds, **kw)
+    plan = dense_plan(data_tm, halo=kw["halo"],
+                      max_pat_len=kw["max_pat_len"])
+    args, outs, _keep = _dense_args(table_flat, data_tm, bounds,
+                                    plan["subspans"], **kw)
     lib = walk_library()
     dev = table_flat.device
     with torch.cuda.device(dev):
@@ -537,9 +587,16 @@ def launch_dense_walk(table_flat, data_tm, bounds, **kw):
     return outs
 
 
-def dense_walk_on_host(table_flat, data_tm, bounds, **kw):
-    """The dense walk's per-thread code on the CPU (a test harness)."""
-    args, outs = _dense_args(table_flat, data_tm, bounds, **kw)
+def dense_walk_on_host(table_flat, data_tm, bounds, subspans=None, **kw):
+    """The dense walk's per-thread code and merge on the CPU (a test
+    harness), in the sub-spans of ``dense_plan_on_host`` or ``subspans``
+    per lane."""
+    if subspans is None:
+        subspans = dense_plan_on_host(
+            *data_tm.shape, halo=kw["halo"],
+            max_pat_len=kw["max_pat_len"])["subspans"]
+    args, outs, _keep = _dense_args(table_flat, data_tm, bounds, subspans,
+                                    **kw)
     if walk_host_library().tpm_dense_walk_host(*args):
         raise RuntimeError("host dense walk rejected its arguments")
     return outs

@@ -9,9 +9,11 @@ bytes is exactly enough: no straddling match is lost, none is reported
 twice (MATCHING.md).
 
 The reference walks all lanes in one XLA ``lax.scan`` over time steps;
-torch has no scan, so the walk is a CUDA kernel (``csrc/dfa_walk.cu``,
-one thread per lane, the layout of the original ``ahomatch.cl``) for a
-CUDA tensor and a plain PyTorch loop over time steps for a CPU tensor.
+torch has no scan, so the walk is a CUDA kernel (``csrc/dfa_walk.cu``) for
+a CUDA tensor and a plain PyTorch loop over time steps for a CPU tensor.
+The kernel cuts each lane into sub-spans walked from the root after a
+warm-up of ``max_pat_len - 1`` symbols, the halo argument above applied
+inside a lane: the same states, reports and counts.
 The module keeps the reference's name so that each module's counterpart is
 easy to find.
 
@@ -50,8 +52,8 @@ class ScanResult:
 
 
 def dense_walk(table_flat, data_tm, bounds, *, alphabet_size: int,
-               halo: int, max_results: int, state_gid=None,
-               num_groups: int = 0):
+               halo: int, max_results: int, max_pat_len: int,
+               state_gid=None, num_groups: int = 0):
     """Walk every lane of the time-major batch ``data_tm [T, C]`` of uint8
     or uint16 symbols (the ushort alphabet; a symbol past the alphabet
     reads as ``A - 1``).
@@ -63,13 +65,14 @@ def dense_walk(table_flat, data_tm, bounds, *, alphabet_size: int,
     Returns ``(counts [C], slot_state [C, R], slot_pos [C, R], gcounts [G]
     or None)``, all int32; the first R reports fill the slots with
     ``(state, t - halo)``, and with ``state_gid`` every report adds one to
-    ``gcounts[state_gid[state]]``.
+    ``gcounts[state_gid[state]]``. ``max_pat_len`` is the table's longest
+    pattern (the kernel's warm-up; the plain version walks whole lanes).
 
     A CUDA tensor goes to the kernel of ``csrc/dfa_walk.cu`` (or raises),
     a CPU tensor to :func:`dense_walk_plain`."""
     kw = dict(alphabet_size=alphabet_size, halo=halo,
-              max_results=max_results, state_gid=state_gid,
-              num_groups=num_groups)
+              max_results=max_results, max_pat_len=max_pat_len,
+              state_gid=state_gid, num_groups=num_groups)
     if table_flat.is_cuda:
         from tpu_pattern_matching_torch.ops import kernels
 
@@ -80,11 +83,12 @@ def dense_walk(table_flat, data_tm, bounds, *, alphabet_size: int,
 
 
 def dense_walk_plain(table_flat, data_tm, bounds, *, alphabet_size: int,
-                     halo: int, max_results: int, state_gid=None,
-                     num_groups: int = 0):
+                     halo: int, max_results: int, max_pat_len: int,
+                     state_gid=None, num_groups: int = 0):
     """Plain PyTorch version of the dense-walk kernel: one vectorised step
-    over all lanes per time step. Same contract as :func:`dense_walk`; the
-    CPU path, and what the kernel is held to on the card."""
+    over all lanes per time step, each lane walked whole (``max_pat_len``
+    is not needed). Same contract as :func:`dense_walk`; the CPU path, and
+    what the kernel is held to on the card."""
     T, C = data_tm.shape
     R = max_results
     G = num_groups
@@ -131,7 +135,7 @@ def scan_batch(table: DeviceTable, data, start_t, end_t, halo: int,
         table.table_flat, data.t().contiguous(),
         torch.stack([start_t, end_t]).to(torch.int32),
         alphabet_size=table.alphabet_size, halo=halo,
-        max_results=max_results,
+        max_results=max_results, max_pat_len=table.max_pat_len,
     )
     return ScanResult(counts=counts, slot_state=slot_state,
                       slot_pos=slot_pos)
