@@ -5,9 +5,9 @@
 
 Phases (any failure exits non-zero at once):
 
-1. build    — compile both CUDA libraries of
+1. build    — compile the three CUDA libraries of
               ``tpu_pattern_matching_torch/csrc/`` with nvcc for sm_90a, one
-              nvcc each, both at once; print each kernel's ptxas line
+              nvcc each, all at once; print each kernel's ptxas line
               (registers, stack, spills);
 2. kernels  — each kernel against its plain PyTorch version on the card,
               bit for bit, with the CUDA-event and host times per call of
@@ -66,15 +66,25 @@ Phases (any failure exits non-zero at once):
 10. main inputs — the sampled and strided probes, at both widths, on the
               main paths' own inputs kept from phases 3 and 7 (the fullest
               batch of each), against the plain probe, timed, with bounds;
-11. trace   — torch.profiler traces: each kernel's device time per launch
+11. proto   — the prototype probes of the reference's
+              ``benchmarks/exp_bloom.py`` (K4, one tile [286, 512]; K5, the
+              grid [58368, 1024] of 128 tiles with their pad rows), each
+              against its plain version on the card bit for bit, and
+              against the copied NumPy model (K4; K5's first and last
+              tile), timed beside its bound; then the port's experiment
+              (``benchmarks.exp_bloom.main``), whose correctness line must
+              say ok and whose launches are the summary's. It runs
+              last before the trace: run right after phase 2, it
+              slowed the slice phase's timed find 3-4x;
+12. trace   — torch.profiler traces: each kernel's device time per launch
               (the summary's ``ms``) beside its bound and share, also on
               the main paths' inputs, and the device time of the packed
               A/B's prep + probe per call;
-12. no jax  — the port never imported jax nor the JAX package.
+13. no jax  — the port never imported jax nor the JAX package.
 
-Each of phases 3-9 sets every launch count to 0 before its path and reads
-them after it; each fails unless the kernels of its path were launched.
-Each of phases 7-9 prints its wall time.
+Each of phases 3-9 and 11 sets every launch count to 0 before its path
+and reads them after it; each fails unless the kernels of its path were
+launched. Each of phases 7-9 and 11 prints its wall time.
 The last lines are the card's name and power limit, a JSON line with the
 per-kernel summary (every kernel at each symbol width, with its bound,
 share and, for the probes, its numbers on the main path's inputs), and
@@ -91,7 +101,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -100,6 +109,10 @@ import types
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+from tpu_pattern_matching_torch.utils.measure import (  # noqa: E402
+    BANK_OPS, bound_of, card, event_ms, trace_ms)
+
 BATCH_LANES = 4096  # bench.py's batch: 4096 lanes x 4096 bytes
 CHUNK_LEN = 4096
 HALO = 16  # pad_halo(11, 4096): the bench batch is [4096, 4112]
@@ -122,9 +135,11 @@ SIGS = ("40,32,287,32,106,196; 6; File scanner (metasploit file scanning)\n"
         "40,32,287,32,106,186,32; 7; Directory scanner\n"
         "5,5,5; 3; triple five\n")  # tests/test_ushort.py's fixture
 CLI_FILES = 16  # the byte CLI phase splits the 64 MiB stream into 16 files
-CUDA_LIBRARIES = ("libtpm_probe_cuda.so", "libtpm_walk_cuda.so")
+CUDA_LIBRARIES = ("libtpm_probe_cuda.so", "libtpm_walk_cuda.so",
+                  "libtpm_proto_cuda.so")
 PROBE_SRC = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
 WALK_SRC = "tpu_pattern_matching_torch/csrc/dfa_walk.cu"
+PROTO_SRC = "tpu_pattern_matching_torch/csrc/proto_probe.cu"
 KERNELS = {  # launch-count key: (summary name, __global__ function,
     #                               source, TPU kernel replaced)
     "sampled": ("bloom_probe_sampled", "probe_sampled_kernel", PROBE_SRC,
@@ -147,29 +162,19 @@ KERNELS = {  # launch-count key: (summary name, __global__ function,
                         "tpu_pattern_matching/ops/verify_device.py:260"),
     "dense_walk_u16": ("dfa_dense_walk_u16", "dense_walk_kernel", WALK_SRC,
                        "tpu_pattern_matching/ops/match_xla.py:69"),
+    "proto_tile": ("bloom_proto_tile", "proto_probe_kernel", PROTO_SRC,
+                   "benchmarks/exp_bloom.py:53"),
+    "proto_grid": ("bloom_proto_grid", "proto_probe_kernel", PROTO_SRC,
+                   "benchmarks/exp_bloom.py:130"),
 }
 
 
-# The card's peaks for the bounds (NVIDIA H100 SXM, data sheet): device
-# memory, and int32 operations (132 SMs x 64 INT32 lanes x 1.98 GHz).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations counted per unit of work (the least a kernel can do):
-BANK_OPS = 9  # a bank probed: h = m1 + b*m2; h ^= h >> 13 (2); the unit,
-#               word and bit fields (3); the word's address (2); the test
+# int32 operations counted per unit of work (the least a kernel can do;
+# the card's peaks and BANK_OPS are in utils/measure.py):
 SEL_OPS = 6  # a row's selection hash past its q multiply-adds (3) and its
 #              share of a sliding window minimum (3)
 WALK_OPS = 5  # a DFA step: the entry's index, the gather, the sign test,
 #               the state (abs), the report test
-
-
-def bound_of(nbytes: int, ops: int) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the int32 operations over their peak rate."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to
-                else "operations", bytes=int(nbytes), ops=int(ops))
 
 
 def probe_bound(torch, bloom, data_tm, bp, words, cfg) -> dict:
@@ -212,29 +217,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, n: int) -> float:
-    """Mean ms per call over n calls, by CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
 def host_ms(torch, fn, n: int) -> float:
     """Host ms per call over n calls without a sync: the launch cost."""
     fn()
@@ -253,8 +235,8 @@ def timed(torch, fn, plain, n: int, n_plain: int, err: int,
     CUDA-event time of its plain version, with the launch's ``bound``,
     for the summary and a print line; ``fn`` is kept for the trace phase,
     which adds the device time."""
-    t = dict(event_ms=cuda_ms(torch, fn, n), host_ms=host_ms(torch, fn, n),
-             plain_ms=cuda_ms(torch, plain, n_plain), max_abs_err=err,
+    t = dict(event_ms=event_ms(fn, n), host_ms=host_ms(torch, fn, n),
+             plain_ms=event_ms(plain, n_plain), max_abs_err=err,
              fn=fn, **bound)
     return t, (f"; kernel {t['event_ms']:.4f} ms per call by CUDA events "
                f"over {n} calls, {t['host_ms']:.4f} ms host per call; plain "
@@ -266,30 +248,6 @@ def bound_text(b: dict) -> str:
             f"B, {b['ops']} int32 ops)")
 
 
-def trace_ms(torch, fn, fn_name=None, n: int = 100) -> tuple[float, int]:
-    """From a torch.profiler trace of n calls of ``fn``: (device ms per
-    launch of the kernel ``fn_name``, launches traced), or with no
-    ``fn_name`` (device ms per call of all its device work, device
-    events traced)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and (fn_name is None or fn_name in e.key)]
-    count = sum(e.count for e in rows)
-    if not count:
-        fail(f"[trace] no device work of {fn_name or fn} in {n} calls")
-    us = sum(e.device_time_total for e in rows)
-    return us / 1e3 / (count if fn_name else n), count
-
-
 def phase_trace(torch, times, main, ab_fns, card_line: str) -> None:
     """Device times from torch.profiler traces: each kernel's per launch
     (also on the main path's inputs, ``main``), and the packed A/B's per
@@ -297,19 +255,19 @@ def phase_trace(torch, times, main, ab_fns, card_line: str) -> None:
     last, so that the profiler's set-up and hooks cannot touch the
     host-bound times taken before it."""
     for key, t in times.items():
-        t["ms"], count = trace_ms(torch, t.pop("fn"), KERNELS[key][1])
+        t["ms"], count = trace_ms(t.pop("fn"), KERNELS[key][1])
         print(f"[trace] {key:14s} {t['ms']:.4f} ms device time per launch "
               f"({count} launches traced of 100 calls); {t['event_ms']:.4f} "
               f"ms per call by CUDA events, {t['host_ms']:.4f} ms host per "
               f"call; {bound_text(t)}, share {t['bound_ms'] / t['ms']:.4f} "
               f"({card_line})", flush=True)
     for key, t in main.items():
-        t["ms"], count = trace_ms(torch, t.pop("fn"), KERNELS[key][1])
+        t["ms"], count = trace_ms(t.pop("fn"), KERNELS[key][1])
         print(f"[trace] {key:14s} on the main path's inputs ({t['label']}): "
               f"{t['ms']:.4f} ms device time per launch ({count} launches "
               f"traced of 100 calls); {bound_text(t)}, share "
               f"{t['bound_ms'] / t['ms']:.4f} ({card_line})", flush=True)
-    ab = [trace_ms(torch, ab_fns[packed])[0] for packed in AB]
+    ab = [trace_ms(ab_fns[packed])[0] for packed in AB]
     print(f"[trace] packed A/B, device time of prep + probe per call: byte "
           f"path {ab[0]:.4f}, {ab[3]:.4f} ms, packed path {ab[1]:.4f}, "
           f"{ab[2]:.4f} ms (A, B, B, A); packed/byte "
@@ -361,10 +319,13 @@ def phase_build(kernels, card_line: str) -> None:
               flush=True)
         for kernel, info in ptxas_lines(b["log"]):
             print(f"[build] ptxas {kernel}: {info}", flush=True)
-    print(f"[build] both libraries in {secs:.2f} s (parallel)", flush=True)
+    print(f"[build] all {len(CUDA_LIBRARIES)} libraries in {secs:.2f} s "
+          f"(parallel)", flush=True)
 
 
-KERNEL_NAME = re.compile(r"(probe_\w+?_kernel|\w+_walk_kernel)I?([ht]?)")
+# a kernel's name in its mangled symbol, after its length (the anonymous
+# namespace's prefix holds the file name and a hash)
+KERNEL_NAME = re.compile(r"\d+([a-z][a-z_]*_kernel)I?([ht]?)")
 
 
 def ptxas_lines(log: str) -> list:
@@ -542,6 +503,74 @@ def phase_probe_edges(torch, bloom, kernels, card_line) -> None:
                          torch.from_numpy(data).to(dev),
                          torch.from_numpy(np.stack([start, end])).to(dev),
                          configs, (), seed, card_line)
+
+
+def phase_proto(torch, kernels, card_line) -> tuple[dict, dict]:
+    """K4 and K5 (``benchmarks.exp_bloom``) on the experiment's own inputs
+    (``make_tables(0)`` and the next two draws): each kernel against the
+    plain version on the card, bit for bit, and against the copied NumPy
+    model (K4; K5's first and last tile), timed beside its bound
+    (``probe_work``: the rows read, output and table once; 2q ops a row and
+    BANK_OPS per bank probed to the first miss). Then the port's
+    experiment, ``exp_bloom.main()``: its correctness line must say ok.
+    Returns the times and the launch counts of the experiment's run."""
+    from tpu_pattern_matching_torch.benchmarks import exp_bloom as eb
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    bloom_np, mix1, mix2, rng = eb.make_tables(0)
+    bloom = torch.from_numpy(bloom_np).to(dev)
+    tile = rng.randint(0, 256, size=(eb.G * eb.S + eb.Q, eb.C))
+    grid = rng.randint(0, 256, size=(eb.TILES * (eb.TT + eb.PADR), eb.CT))
+    times = {}
+    for key, run, data_np, geom, n in (
+            ("proto_tile", eb.run_probe, tile, dict(eb.TILE, tiles=1), 200),
+            ("proto_grid", eb.run_grid, grid, dict(eb.GRID, tiles=eb.TILES),
+             50)):
+        data_np = data_np.astype(np.uint8)
+        data = torch.from_numpy(data_np).to(dev)
+        got = run(data, bloom, mix1, mix2)
+        torch.cuda.synchronize()
+        got = got[None] if key == "proto_tile" else got  # [tiles, rows, C]
+        want = eb.probe_plain(data, bloom, mix1, mix2, **geom)
+        err = max_abs_err(torch, (got,), (want,))
+        if err or not torch.equal(got, want):
+            fail(f"[proto] {key}: kernel differs from plain (max_abs_err "
+                 f"{err})")
+        pitch, host = geom["pitch"], got.cpu().numpy()
+        ends = sorted({0, geom["tiles"] - 1})
+        for i in ends:
+            win = eb.np_windows(data_np[i * pitch : (i + 1) * pitch],
+                                geom["rows"])
+            if not np.array_equal(host[i], eb.np_probe(
+                    win, bloom_np, mix1, mix2).astype(np.int8)):
+                fail(f"[proto] {key}: tile {i} differs from np_probe")
+        work = eb.probe_work(data, bloom, mix1, mix2, **geom)
+        times[key], text = timed(
+            torch, functools.partial(run, data, bloom, mix1, mix2),
+            functools.partial(eb.probe_plain, data, bloom, mix1, mix2,
+                              **geom),
+            n, 3, err, card_line, bound_of(work["bytes"], work["ops"]))
+        print(f"[proto] {key:14s} {data.dtype} [{data.shape[0]}, "
+              f"{data.shape[1]}] -> int8 {list(want.shape)}: equal to the "
+              f"plain version and to np_probe on tiles {ends}, tolerance 0 "
+              f"({work['hits']} hits, {work['bank_probes']} bank probes, "
+              f"{work['bank_probes'] / want.numel():.4f} a row){text}",
+              flush=True)
+    t_main = time.perf_counter()
+    reset(kernels)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = eb.main(["--device", DEVICE])
+    launches = read_launches(kernels, "proto", ("proto_tile", "proto_grid"))
+    for ln in out.getvalue().splitlines():
+        print(f"[proto] exp_bloom.main: {ln}", flush=True)
+    if rc or "ok = True" not in out.getvalue():
+        fail(f"[proto] exp_bloom.main exited {rc} without an ok line")
+    now = time.perf_counter()
+    print(f"[proto] phase wall time {now - t_phase:.2f} s (exp_bloom.main "
+          f"{now - t_main:.2f} s)", flush=True)
+    return times, launches
 
 
 def plant(rng, pats, size, density):
@@ -886,7 +915,7 @@ def phase_packed(torch, bloom, kernels, card_line) -> tuple[dict, dict]:
     fns = {packed: functools.partial(bloom.hits, data, bounds, words, cfg,
                                      packed=packed)
            for packed in (False, True)}
-    ab = [cuda_ms(torch, fns[packed], 20) for packed in AB]
+    ab = [event_ms(fns[packed], 20) for packed in AB]
     print(f"[packed] {cfg_name(cfg)} at [{data.shape[0]}, {data.shape[1]}]: "
           f"bitmaps and totals equal ({int(t_pk[0])} survivors); prep + "
           f"probe per call by CUDA events: byte path {ab[0]:.4f}, "
@@ -1444,7 +1473,6 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    sys.path.insert(0, HERE)
     import tpu_pattern_matching_torch
     from tpu_pattern_matching_torch.ops import bloom, kernels
     from tpu_pattern_matching_torch.runtime.session import MatchSession
@@ -1485,6 +1513,11 @@ def main() -> None:
                                        card_line)
         phase_cli(torch, kernels, workloads, tmp, card_line)
         phase_sentiment(torch, kernels, tmp, card_line)
+    # phase 11, last before the trace (why: the docstring)
+    proto_times, proto_launches = phase_proto(torch, kernels, card_line)
+    times.update(proto_times)
+    for key in ("proto_tile", "proto_grid"):
+        launches[key] = proto_launches[key]
     phase_trace(torch, times, main_times, ab_fns, card_line)
     imported = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "tpu_pattern_matching")]

@@ -7,7 +7,7 @@ reference's jax-free modules it keeps as copies under the same names
 ``runtime.buffers``, ``runtime.stager_native``, ``runtime.verify``,
 ``runtime.feeder``, ``runtime.files``, ``runtime.stats``,
 ``runtime.tracing.PhaseTimer``, ``utils.common``, ``utils.debug``, the
-sentiment app's counters). Every output here is an integer, a string or
+sentiment app's counters, the host half of ``ops.exact_gram``). Every output here is an integer, a string or
 an exact count, so every comparison is exact."""
 
 import numpy as np
@@ -18,6 +18,7 @@ from tpu_pattern_matching.core import oracle as ref_oracle
 from tpu_pattern_matching.core import oracle_native as ref_native
 from tpu_pattern_matching.core import patterns as ref_patterns
 from tpu_pattern_matching.ops import bloom as ref_bloom
+from tpu_pattern_matching.ops import exact_gram as ref_exact
 from tpu_pattern_matching.runtime import buffers as ref_buffers
 from tpu_pattern_matching.runtime import files as ref_files
 from tpu_pattern_matching.runtime import stats as ref_stats
@@ -29,6 +30,7 @@ from tpu_pattern_matching_torch.core import oracle as port_oracle
 from tpu_pattern_matching_torch.core import oracle_native as port_native
 from tpu_pattern_matching_torch.core import patterns as port_patterns
 from tpu_pattern_matching_torch.ops import bloom as port_bloom
+from tpu_pattern_matching_torch.ops import exact_gram as port_exact
 from tpu_pattern_matching_torch.runtime import buffers as port_buffers
 from tpu_pattern_matching_torch.runtime import files as port_files
 from tpu_pattern_matching_torch.runtime import stats as port_stats
@@ -295,3 +297,34 @@ def test_sentiment_counters_equal(tmp_path):
     reps = [[(r.window, r.score_pct, r.top_words) for r in a.report(9000.0)]
             for a in anas]
     assert reps[0] == reps[1] and anas[0].matches == anas[1].matches
+
+
+def random_grams(seed, n, q, alpha=256):
+    rng = np.random.RandomState(seed)
+    return {tuple(int(x) for x in rng.randint(0, alpha, q)) for _ in range(n)}
+
+
+EXACT_CASES = {  # name: (grams, q, bits), the cases of tests/test_exact_gram.py
+    **{f"random-q{q}": (random_grams(q, 500, q), q, 8)
+       for q in (1, 2, 3, 4, 5, 6, 8)},
+    "empty": (set(), 4, 8),
+    "one-gram": ({(7, 8, 9, 10)}, 4, 8),
+    "dense-load-q2": (random_grams(9, 5000, 2), 2, 8),
+    **{f"bits11-q{q}": (random_grams(40 + q, 500, q, alpha=2048), q, 11)
+       for q in (1, 3, 5)},
+}
+
+
+@pytest.mark.parametrize("name", list(EXACT_CASES))
+def test_build_exact_table_equals_reference(name):
+    grams, q, bits = EXACT_CASES[name]
+    for seed in (0, 7):
+        ref = ref_exact.build_exact_table(grams, q, seed=seed, bits=bits)
+        port = port_exact.build_exact_table(grams, q, seed=seed, bits=bits)
+        for field in ("lo", "hi"):
+            a, b = getattr(port, field), getattr(ref, field)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b, err_msg=field)
+        for field in ("q", "dmax", "m", "c1", "c2", "n", "bits"):
+            assert getattr(port, field) == getattr(ref, field), field
+    assert port.n == len(grams)

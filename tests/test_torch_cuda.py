@@ -425,3 +425,25 @@ def test_ushort_sessions_on_cuda_equal_oracle(cuda):
                             device=cuda, **kw)
         assert sess.find(text) == want and len(want) >= 140
         assert kernels.launches[key] > before, kw
+
+
+def test_proto_probe_kernel_equals_plain(cuda):
+    # the prototype probe: the one-tile form at its own shape and a 4-tile
+    # grid at the grid's lane width
+    from tpu_pattern_matching_torch.benchmarks import exp_bloom as eb
+
+    bloom_np, mix1, mix2, rng = eb.make_tables(0)
+    bloom = torch.from_numpy(bloom_np).to(cuda)
+    tile = rng.randint(0, 256, size=(eb.G * eb.S + eb.Q, eb.C))
+    grid = rng.randint(0, 256, size=(4 * (eb.TT + eb.PADR), eb.CT))
+    for key, run, data, geom in (
+            ("proto_tile", eb.run_probe, tile, dict(eb.TILE, tiles=1)),
+            ("proto_grid", eb.run_grid, grid, dict(eb.GRID, tiles=4))):
+        data = torch.from_numpy(data.astype(np.uint8)).to(cuda)
+        before = kernels.launches[key]
+        got = run(data, bloom, mix1, mix2)
+        torch.cuda.synchronize()
+        assert kernels.launches[key] == before + 1
+        want = eb.probe_plain(data, bloom, mix1, mix2, **geom)
+        want = want[0] if key == "proto_tile" else want
+        assert torch.equal(got, want) and int(want.sum()) > 0

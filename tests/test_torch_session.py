@@ -138,6 +138,31 @@ def test_decode_counts_equal_reference():
     assert port.decode_counts(buf.to_batch(), port.scan(buf.to_batch()))[0] == 0
 
 
+def batch_events(bm):
+    return ([(e.file_id, e.end_offset, list(e.pattern_indices), e.rep_index,
+              e.lane, e.gid) for e in bm.events],
+            bm.total, bm.reported, bm.overflowed)
+
+
+@pytest.mark.parametrize("engine", ["bloom", "dense"])
+def test_scan_and_decode_equals_reference(engine):
+    from tpu_pattern_matching.runtime.buffers import StreamState
+
+    pats = [b"abc", b"bc", b"zzzz"]
+    data = (b"xxabcx" * 40 + b"zzzzz") * 3
+    table = compile_patterns(pats)
+    kw = dict(max_chunks=4, chunk_len=64, engine=engine)
+    ref = RefSession(table, **kw)
+    port = MatchSession(table, device="cpu", **kw)
+    buf = port.new_buffer()
+    buf.add_stream(io.BytesIO(data), StreamState(file_id=2))
+    batch = buf.to_batch()
+    got = batch_events(port.scan_and_decode(batch))
+    assert got == batch_events(ref.scan_and_decode(batch))
+    assert got == batch_events(port.decode(batch, port.scan(batch)))
+    assert got[1] > 40
+
+
 def test_refine_overflow_grows_k_ref_like_reference():
     # match-dense input past the refinement capacity: the unrefined bitmap
     # passes through, events stay exact, and k_ref grows as in the
@@ -260,6 +285,14 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "u = MatchSession(compile_signatures('sigs'), max_chunks=4, "
         "chunk_len=16, device='cpu', engine='bloom')\n"
         "assert u.find(b'1, 5, 500, 1999, 5') == [(3, 0)]\n"
+        "import torch\n"
+        "from tpu_pattern_matching_torch.benchmarks import exp_bloom\n"
+        "b, m1, m2, rng = exp_bloom.make_tables(0)\n"
+        "d = rng.randint(0, 256, size=(286, 512)).astype('uint8')\n"
+        "hit = exp_bloom.run_probe(torch.from_numpy(d), "
+        "torch.from_numpy(b), m1, m2)\n"
+        "want = exp_bloom.np_probe(exp_bloom.np_windows(d), b, m1, m2)\n"
+        "assert (hit.numpy() == want).all() and want.sum() == 264\n"
         "mods = [m for m in sys.modules if (m.startswith('jax') or "
         "m.split('.')[0] == 'tpu_pattern_matching') and "
         "sys.modules[m] is not None]\n"

@@ -79,6 +79,13 @@ class ExactGramTable:
         return self.q * self.bits > 32
 
 
+def build_exact_table(
+    grams, q: int, seed: int = 0, bits: int = 8
+) -> ExactGramTable:
+    """Build from gram tuples (packs, then places)."""
+    return table_from_keys(pack_grams(grams, q, bits), q, seed, bits)
+
+
 _DMAX = 4
 
 

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/``).
 
-Two libraries for Hopper (sm_90a), each with a plain C entry point per
+Three libraries for Hopper (sm_90a), each with a plain C entry point per
 kernel, bound with ``ctypes``:
 
 - ``bloom_probe.cu`` — the bloom probes. They replace the Pallas kernels of
@@ -13,15 +13,20 @@ kernel, bound with ``ctypes``:
   (``ops/verify_device.py`` stage 3) and the dense engine's lane walk
   (``ops/match_xla.py``), which walks each lane in sub-spans
   (``dense_plan``).
+- ``proto_probe.cu`` — the prototype probe of the reference's
+  ``benchmarks/exp_bloom.py`` (its two Pallas bodies: ``kernel``, one
+  tile, and ``big_kernel``, a grid of tiles), launched by
+  ``benchmarks.exp_bloom.run_probe`` and ``run_grid``; no session path runs
+  it.
 
 Symbols are uint8 (bytes) or uint16 (the ushort alphabet of 2048, the
-packet-metadata path): every kernel but the packed probe has a build for
-each width, chosen by the symbol tensor's dtype.
+packet-metadata path): every kernel but the packed and prototype probes
+has a build for each width, chosen by the symbol tensor's dtype.
 
 Each library is compiled with its own ``nvcc`` at first use into
 ``_build/`` (listed in ``.gitignore``) and rebuilt when a source is newer;
-``build_all`` runs both compiles at once. ``*_host.cpp`` runs the same
-tile and thread code on the CPU (built with ``g++``) so the tests can
+``build_all`` runs the three compiles at once. ``*_host.cpp`` runs the
+same tile and thread code on the CPU (built with ``g++``) so the tests can
 check the kernels' arithmetic without a GPU. The same loader builds the
 host's native oracle and stager (``oracle.cpp``, ``stager.cpp``) with
 ``g++``.
@@ -64,16 +69,22 @@ LIBRARIES = {
     "libtpm_probe_host.so": (("bloom_probe_host.cpp",), ("bloom_probe.cuh",)),
     "libtpm_walk_cuda.so": (("dfa_walk.cu",), ("dfa_walk.cuh",)),
     "libtpm_walk_host.so": (("dfa_walk_host.cpp",), ("dfa_walk.cuh",)),
+    "libtpm_proto_cuda.so": (("proto_probe.cu",),
+                             ("proto_probe.cuh", "bloom_probe.cuh")),
+    "libtpm_proto_host.so": (("proto_probe_host.cpp",),
+                             ("proto_probe.cuh", "bloom_probe.cuh")),
     "liboracle.so": (("oracle.cpp",), ()),
     "libstager.so": (("stager.cpp",), ()),
 }
 
-# Kernel launches per kernel and symbol width (``_u16``: uint16 symbols);
-# each launch_* function adds one per launch and nothing else touches them
-# (chip_smoke.py resets and reads them).
+# Kernel launches per kernel and symbol width (``_u16``: uint16 symbols;
+# ``proto_tile`` and ``proto_grid``: the prototype probe as the one-tile
+# and the grid prototype); each launch_* function adds one per launch and
+# nothing else touches them (chip_smoke.py resets and reads them).
 launches = {"sampled": 0, "strided": 0, "strided_packed": 0,
             "window_walk": 0, "dense_walk": 0, "sampled_u16": 0,
-            "strided_u16": 0, "window_walk_u16": 0, "dense_walk_u16": 0}
+            "strided_u16": 0, "window_walk_u16": 0, "dense_walk_u16": 0,
+            "proto_tile": 0, "proto_grid": 0}
 # The compiles of this process: library file -> {"seconds", "command", "log"}.
 builds: dict = {}
 
@@ -187,6 +198,15 @@ def _bind_walk(lib, stream: bool) -> None:
         lib.tpm_walk_error_string.restype = ctypes.c_char_p
 
 
+def _bind_proto(lib, stream: bool) -> None:
+    fn = lib.tpm_proto_probe if stream else lib.tpm_proto_probe_host
+    fn.argtypes = [P] * 3 + [I] * 8 + [P] * 2 + ([P] if stream else [])
+    fn.restype = I
+    if stream:
+        lib.tpm_proto_error_string.argtypes = [I]
+        lib.tpm_proto_error_string.restype = ctypes.c_char_p
+
+
 def _nvcc():
     return [find_nvcc(), *NVCC_FLAGS]
 
@@ -205,6 +225,8 @@ def _bind_walk_host(lib) -> None:
 
 PROBE_CUDA = ("libtpm_probe_cuda.so", _nvcc, _bind_probe_cuda)
 WALK_CUDA = ("libtpm_walk_cuda.so", _nvcc, _bind_walk_cuda)
+PROTO_CUDA = ("libtpm_proto_cuda.so", _nvcc,
+              lambda lib: _bind_proto(lib, True))
 
 
 def cuda_library() -> ctypes.CDLL:
@@ -217,9 +239,14 @@ def walk_library() -> ctypes.CDLL:
     return _load(WALK_CUDA)[0]
 
 
+def proto_library() -> ctypes.CDLL:
+    """The prototype probe's library, built on first use (needs ``nvcc``)."""
+    return _load(PROTO_CUDA)[0]
+
+
 def build_all() -> None:
     """Build (or load) every CUDA library, one ``nvcc`` each, all at once."""
-    _load(PROBE_CUDA, WALK_CUDA)
+    _load(PROBE_CUDA, WALK_CUDA, PROTO_CUDA)
 
 
 def host_library() -> ctypes.CDLL:
@@ -600,3 +627,58 @@ def dense_walk_on_host(table_flat, data_tm, bounds, subspans=None, **kw):
     if walk_host_library().tpm_dense_walk_host(*args):
         raise RuntimeError("host dense walk rejected its arguments")
     return outs
+
+
+# ---------------------------------------------------- the prototype probe
+
+
+def _proto_args(data, words, mix1, mix2, *, rows, stride, q, pitch, tiles):
+    """A prototype-probe launch's arguments, for inputs that
+    ``benchmarks.exp_bloom.check`` accepted (the kernel's entry point
+    checks the geometry again); returns (its arguments, the output [tiles,
+    rows, C] int8 on the inputs' device, the multiplier arrays the
+    arguments point at, to be held until the launch is enqueued)."""
+    _same_device(data, data=data, words=words)
+    C = data.shape[1]
+    out = torch.empty((tiles, rows, C), dtype=torch.int8, device=data.device)
+    mixes = tuple(np.asarray([int(x) & 0xFFFFFFFF for x in m], np.int64)
+                  for m in (mix1, mix2))
+    args = (data.data_ptr(), words.data_ptr(), out.data_ptr(), tiles, rows,
+            stride, q, pitch, C, words.shape[0], words.shape[1],
+            mixes[0].ctypes.data, mixes[1].ctypes.data)
+    return args, out, mixes
+
+
+def launch_proto_probe(data, words, mix1, mix2, *, kind, **geom):
+    """Launch the prototype probe on inputs that
+    ``benchmarks.exp_bloom.check`` accepted (``geom``: rows, stride, q,
+    pitch, tiles) on the current stream and count it under
+    ``proto_<kind>`` (``tile``: the one-tile prototype, ``grid``: the
+    grid); CUDA tensors only. Returns the output ``[tiles, rows, C]`` int8
+    without synchronising."""
+    if not data.is_cuda:
+        raise ValueError(f"launch_proto_probe needs CUDA tensors, got "
+                         f"{data.device}")
+    key = f"proto_{kind}"
+    if key not in launches:
+        raise ValueError(f"kind must be 'tile' or 'grid', got {kind!r}")
+    args, out, _mixes = _proto_args(data, words, mix1, mix2, **geom)
+    lib = proto_library()
+    dev = data.device
+    with torch.cuda.device(dev):
+        rc = lib.tpm_proto_probe(*args, _stream(dev))
+    _raise_on(rc, "proto probe", lib.tpm_proto_error_string)
+    launches[key] += 1
+    return out
+
+
+def proto_probe_on_host(data, words, mix1, mix2, **geom):
+    """The prototype probe's per-thread code on the CPU (a test harness):
+    CPU tensors that ``benchmarks.exp_bloom.check`` accepted in, the
+    output ``[tiles, rows, C]`` int8 out."""
+    args, out, _mixes = _proto_args(data, words, mix1, mix2, **geom)
+    lib = _load(("libtpm_proto_host.so", _gxx,
+                 lambda lib: _bind_proto(lib, False)))[0]
+    if lib.tpm_proto_probe_host(*args):
+        raise RuntimeError("host proto probe rejected its arguments")
+    return out

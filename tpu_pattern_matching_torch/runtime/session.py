@@ -294,6 +294,10 @@ class MatchSession:
             overflowed=total > reported,
         )
 
+    def scan_and_decode(self, batch: HostBatch) -> BatchMatches:
+        """``decode(batch, scan(batch))``: one batch's events."""
+        return self.decode(batch, self.scan(batch))
+
     def _candidate_rows(self, comp: BloomHits):
         """(rows, lanes) of candidate grams from the survivor bitmap."""
         from tpu_pattern_matching_torch.ops.bloom import unpack_hit_rows
