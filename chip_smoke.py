@@ -33,10 +33,15 @@ Phases (any failure exits non-zero at once):
               prep + probe of each (A, B, B, A);
 5. verify   — ``MatchSession(verify="device")`` on the same two
               workloads: events equal the oracle's, ``decode_counts``
-              equals the oracle's per-group count of distinct match ends;
-              the inputs of the window walk's largest launch of each
-              workload are kept, and after the phase the kernel is checked
-              against its plain version on them and timed, as in phase 2;
+              equals the oracle's per-group count of distinct match ends
+              (the sessions' dispatch numbers: phase 13); the
+              inputs of the walk-and-emit kernel's largest launch of each
+              workload are kept, and after the phase the kernel (stages
+              3-5: the window walk, the compaction of its reports, the
+              group counts) is checked against its plain version on them,
+              bit for bit (meta, packed, gcounts), also with a forced
+              event overflow and on a launch of over 64 blocks of dense
+              candidates, and timed, as in phase 2;
 6. dense    — ``MatchSession(engine="dense")`` on the same two workloads:
               events equal the oracle's, no result slot overflowed; then
               one more find of each with every scan and decode
@@ -55,8 +60,8 @@ Phases (any failure exits non-zero at once):
               strided config) and of the dense walk (the 2,000-signature
               int16 table, and cast to int32) are checked against their
               plain versions at the ushort CLI's batch shape [4096 lanes,
-              16 + 2048 tokens]; after it, the uint16 window walk on the
-              device-verify run's own largest launch;
+              16 + 2048 tokens]; after it, the uint16 walk-and-emit kernel
+              on the device-verify run's own largest launch;
 8. cli      — the byte CLI: the 10k x 12 B workload split over 16 files
               (64 MiB, ``--load-dfa``/``--load-bloom``, ``--json-stats``):
               totals equal the oracle's; a ``-v -t`` run of the 3-pattern
@@ -78,9 +83,18 @@ Phases (any failure exits non-zero at once):
               slowed the slice phase's timed find 3-4x;
 12. trace   — torch.profiler traces: each kernel's device time per launch
               (the summary's ``ms``) beside its bound and share, also on
-              the main paths' inputs, and the device time of the packed
-              A/B's prep + probe per call;
-13. no jax  — the port never imported jax nor the JAX package.
+              the main paths' inputs (and for the walk and emit, the
+              device time of its call: two fills and the kernel), and the
+              device time of the packed A/B's prep + probe per call;
+13. dispatch — per phase-5 session, on its batch of the largest probe
+              total: the median host ms to enqueue one
+              ``verify_candidates`` dispatch (in all and in stages 3-5)
+              and per ``DeviceVerifier.verify``, synchronised; then the
+              device operations (kernels, fills, copies) of the dispatch,
+              in all and in stages 3-5, from torch.profiler traces
+              (``dispatch_numbers``; after the trace phase: a profiler
+              session thins the traces after it);
+14. no jax  — the port never imported jax nor the JAX package.
 
 Each of phases 3-9 and 11 sets every launch count to 0 before its path
 and reads them after it; each fails unless the kernels of its path were
@@ -149,7 +163,7 @@ KERNELS = {  # launch-count key: (summary name, __global__ function,
     "strided_packed": ("bloom_probe_strided_packed",
                        "probe_strided_packed_kernel", PROBE_SRC,
                        "tpu_pattern_matching/ops/bloom.py:730"),
-    "window_walk": ("dfa_window_walk", "window_walk_kernel", WALK_SRC,
+    "window_walk": ("dfa_window_walk", "walk_emit_kernel", WALK_SRC,
                     "tpu_pattern_matching/ops/verify_device.py:260"),
     "dense_walk": ("dfa_dense_walk", "dense_walk_kernel", WALK_SRC,
                    "tpu_pattern_matching/ops/match_xla.py:69"),
@@ -157,7 +171,7 @@ KERNELS = {  # launch-count key: (summary name, __global__ function,
                     PROBE_SRC, "tpu_pattern_matching/ops/bloom.py:833"),
     "strided_u16": ("bloom_probe_strided_u16", "probe_strided_kernel",
                     PROBE_SRC, "tpu_pattern_matching/ops/bloom.py:687"),
-    "window_walk_u16": ("dfa_window_walk_u16", "window_walk_kernel",
+    "window_walk_u16": ("dfa_window_walk_u16", "walk_emit_kernel",
                         WALK_SRC,
                         "tpu_pattern_matching/ops/verify_device.py:260"),
     "dense_walk_u16": ("dfa_dense_walk_u16", "dense_walk_kernel", WALK_SRC,
@@ -255,12 +269,18 @@ def phase_trace(torch, times, main, ab_fns, card_line: str) -> None:
     last, so that the profiler's set-up and hooks cannot touch the
     host-bound times taken before it."""
     for key, t in times.items():
-        t["ms"], count = trace_ms(t.pop("fn"), KERNELS[key][1])
+        fn = t.pop("fn")
+        t["ms"], count = trace_ms(fn, KERNELS[key][1])
+        call = ""
+        if key.startswith("window_walk"):  # two fills and the kernel
+            t["call_ms"], n_ops = trace_ms(fn)
+            call = (f", {t['call_ms']:.4f} ms device time per call (all "
+                    f"{n_ops} device operations of 100 calls)")
         print(f"[trace] {key:14s} {t['ms']:.4f} ms device time per launch "
-              f"({count} launches traced of 100 calls); {t['event_ms']:.4f} "
-              f"ms per call by CUDA events, {t['host_ms']:.4f} ms host per "
-              f"call; {bound_text(t)}, share {t['bound_ms'] / t['ms']:.4f} "
-              f"({card_line})", flush=True)
+              f"({count} launches traced of 100 calls){call}; "
+              f"{t['event_ms']:.4f} ms per call by CUDA events, "
+              f"{t['host_ms']:.4f} ms host per call; {bound_text(t)}, share "
+              f"{t['bound_ms'] / t['ms']:.4f} ({card_line})", flush=True)
     for key, t in main.items():
         t["ms"], count = trace_ms(t.pop("fn"), KERNELS[key][1])
         print(f"[trace] {key:14s} on the main path's inputs ({t['label']}): "
@@ -663,12 +683,24 @@ def dense_bound(torch, data_tm, bounds, dkw) -> dict:
     return walk_bound(steps, data_tm.element_size(), out + bounds.numel() * 4)
 
 
-def window_bound(args, kw) -> dict:
-    """W2's bound: ``steps`` steps for each live slot; inputs lane and row
-    per slot; outputs rep (uint8) and state (int32) per slot and step."""
-    live, slots = int(args[5][0]), args[3].shape[0]
-    return walk_bound(live * kw["steps"], args[1].element_size(),
-                      slots * 8 + slots * kw["steps"] * 5)
+def window_bound(args, kw, meta) -> dict:
+    """W2's bound, the work of stages 3-5 (the walk and emit): inputs lane
+    and row per slot, the bounds, and the symbols of the live slots'
+    windows, each distinct symbol once; outputs 12 B (lane, end, state)
+    per reported event, the group counts and meta; ops WALK_OPS per step
+    of each live slot."""
+    data_flat, bounds, lane, row, n_exact = args[2:7]
+    live = int(n_exact.reshape(()))
+    lo = (lane[:live].cpu().numpy().astype(np.int64).clip(max=kw["C"] - 1)
+          * kw["T"] + row[:live].cpu().numpy().astype(np.int64)
+          - (kw["lmax"] - kw["q"]))
+    pos = (lo[:, None] + np.arange(kw["steps"])[None, :]).clip(
+        0, kw["C"] * kw["T"] - 1)
+    syms = np.unique(pos).size * data_flat.element_size()
+    nbytes = (lane.shape[0] * 8 + bounds.numel() * 4 + syms
+              + int(meta[1]) * 12 + kw["num_groups"] * 4 + 5 * 4)
+    return dict(bound_of(nbytes, live * kw["steps"] * WALK_OPS),
+                live=live)
 
 
 def phase_dense_walk(torch, kernels, workloads, card_line: str) -> dict:
@@ -956,23 +988,151 @@ def stream_counts(sess, data: bytes):
             return total, gc
 
 
+def device_ops(torch, fn, n: int = 20) -> tuple[int, int]:
+    """(device operations: kernels, fills, copies; torch ops called from
+    Python: aten ops under no other aten op) per call of ``fn``, from a
+    torch.profiler trace of n calls: the mean, rounded, so that a device
+    record that a trace misses or takes over from an earlier one cannot
+    change the count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    ops = sum(1 for e in prof.events()
+              if e.device_type == DeviceType.CPU
+              and e.name.startswith("aten::")
+              and not (e.cpu_parent is not None
+                       and e.cpu_parent.name.startswith("aten::")))
+    return round(dev / n), round(ops / n)
+
+
+class _Stop(Exception):
+    pass
+
+
+def dispatch_numbers(torch, sess, data: bytes, n: int = 200) -> dict:
+    """On the batch of ``data``'s largest probe total: the device
+    operations of one ``verify_candidates`` dispatch (the last of
+    ``DeviceVerifier.verify``'s, after its retries), in all and in stages
+    3-5 (all, less those of a run stopped where stage 3 is entered,
+    ``verify_device.walk_and_emit``), the median host ms to enqueue the
+    dispatch (not waiting for the card), in all and in stages 3-5 (the
+    same subtraction, the two timed in turns), and the median host ms per
+    ``DeviceVerifier.verify`` over n calls, each synchronised (timed
+    before the profiler's sessions). It calls the session's launches of
+    every kernel it reaches, so it runs after a phase's launch counts are
+    read."""
+    from tpu_pattern_matching_torch.ops import verify_device as vd
+
+    dvf, kept = sess._dvf, {}
+    verify = dvf.verify
+
+    def spy(*args):
+        if args[3] > kept.get("total", -1):
+            kept.update(args=args, total=args[3])
+        return verify(*args)
+
+    dvf.verify = spy
+    try:
+        sess.find(data)
+    finally:
+        del dvf.verify  # the instance attribute shadowed the method
+    args = kept["args"]
+    dispatch = vd.verify_candidates
+    calls = []
+
+    def last_call(*a, **kw):
+        calls.append((a, kw))
+        return dispatch(*a, **kw)
+
+    vd.verify_candidates = last_call
+    try:
+        dvf.verify(*args)
+    finally:
+        vd.verify_candidates = dispatch
+    a, kw = calls[-1]
+    entry = vd.walk_and_emit
+
+    def stop(*_a, **_kw):
+        raise _Stop
+
+    def until_stage3():
+        vd.walk_and_emit = stop
+        try:
+            dispatch(*a, **kw)
+        except _Stop:
+            pass
+        finally:
+            vd.walk_and_emit = entry
+
+    def host_ms(*fns, sync_after: bool = False) -> list:
+        """Per fn, its host ms per call (median over n rounds that call
+        each fn once, in turns, so that drift on the host falls on all
+        alike; each call starts on an idle card)."""
+        times = [[] for _ in fns]
+        for _ in range(n + 1):
+            for fn, ts in zip(fns, times):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                if sync_after:
+                    torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return [float(np.median(ts[1:])) for ts in times]
+
+    enqueue, enqueue_1_2 = host_ms(lambda: dispatch(*a, **kw), until_stage3)
+    (verify_ms,) = host_ms(lambda: dvf.verify(*args), sync_after=True)
+    # the profiler last, so that no session of it precedes the timings
+    total = device_ops(torch, lambda: dispatch(*a, **kw))
+    before = device_ops(torch, until_stage3)
+    return dict(total=kept["total"], dispatches=len(calls),
+                k=(kw["k_cand"], kw.get("k_walk"), kw["k_ev"]),
+                device_ops=total[0], stages_1_2=before[0],
+                stages_3_5=total[0] - before[0], torch_ops=total[1],
+                torch_ops_3_5=total[1] - before[1],
+                enqueue_ms=enqueue, enqueue_3_5_ms=enqueue - enqueue_1_2,
+                verify_host_ms=verify_ms)
+
+
+def dispatch_text(d: dict) -> str:
+    return (f"one verify_candidates dispatch (probe total {d['total']}, "
+            f"k_cand/k_walk/k_ev {d['k']}, {d['dispatches']} dispatches in "
+            f"the verify call): {d['device_ops']} device operations, "
+            f"{d['stages_3_5']} of them in stages 3-5 (from walk_and_emit "
+            f"on), {d['stages_1_2']} before; {d['torch_ops']} torch ops "
+            f"called, {d['torch_ops_3_5']} in stages 3-5; median host ms to "
+            f"enqueue the dispatch {d['enqueue_ms']:.4f}, its stages 3-5 "
+            f"{d['enqueue_3_5_ms']:.4f} (less the median of a run stopped "
+            f"at stage 3); median host ms per DeviceVerifier.verify, "
+            f"synchronised: {d['verify_host_ms']:.4f}")
+
+
 def phase_verify(torch, kernels, MatchSession, workloads, card_line):
-    """verify="device" on both workloads. Returns the launch counts and,
-    per workload, the inputs of the window walk's largest launch (most
-    slots; the first of equals)."""
+    """verify="device" on both workloads. Returns the launch counts,
+    per workload the inputs of the walk-and-emit kernel's largest launch
+    (most slots; the first of equals), and the sessions with their
+    workloads (for ``phase_dispatch``)."""
     from tpu_pattern_matching_torch.ops.verify_device import MAX_DEVICE_CAND
 
     walks = {}
-    launch = kernels.launch_window_walk
+    launch = kernels.launch_walk_and_emit
 
     def keep_largest(*args, **kw):
-        lane = args[3]
-        if label not in walks or lane.shape[0] > walks[label][0][3].shape[0]:
+        lane = args[4]
+        if label not in walks or lane.shape[0] > walks[label][0][4].shape[0]:
             walks[label] = (args, kw)  # fresh tensors, never reused
         return launch(*args, **kw)
 
+    sessions = []
     reset(kernels)
-    kernels.launch_window_walk = keep_largest
+    kernels.launch_walk_and_emit = keep_largest
     try:
         for w in workloads:
             label = w["label"]
@@ -1002,46 +1162,136 @@ def phase_verify(torch, kernels, MatchSession, workloads, card_line):
                   f"({split} batches verified in lane passes); sticky "
                   f"k_walk {sess._dvf._k_walk}; {rate:.6g} B/s end to end "
                   f"(smoke number, {card_line})", flush=True)
+            del sess._dvf.verify
+            sessions.append((w, sess))
     finally:
-        kernels.launch_window_walk = launch
+        kernels.launch_walk_and_emit = launch
     launches = read_launches(kernels, "verify",
                              ("sampled", "strided", "window_walk"))
-    return launches, walks
+    return launches, walks, sessions
 
 
-def phase_window_walk(torch, kernels, walks, timed_label, card_line) -> dict:
-    """W2 against its plain version on the inputs of a verify run's
-    largest launch of each workload, bit for bit, timed at
-    ``timed_label``'s (under the launch-count key of its symbol width)."""
+def phase_dispatch(torch, sessions, card_line) -> None:
+    """Phase 5's sessions' dispatch numbers (``dispatch_numbers``); after
+    the trace phase, whose traces its profiler sessions would thin."""
+    for w, sess in sessions:
+        d = dispatch_numbers(torch, sess, w["data"])
+        if d["stages_3_5"] > 3:
+            fail(f"[dispatch] {w['label']}: stages 3-5 took "
+                 f"{d['stages_3_5']} device operations, not <= 3")
+        print(f"[dispatch] {w['label']}: {dispatch_text(d)} ({card_line})",
+              flush=True)
+
+
+def dense_candidates(torch, kernels, args, kw, pats, every: int = 8):
+    """Stages 3-5's inputs on the batch of ``args`` with dense candidates
+    and dense matches: as many whole lanes as make over 64 blocks of
+    slots are overwritten with ``pats`` planted at 0.5 (half their bytes
+    pattern bytes) and given spans of the whole lane; every
+    ``every``-th row of them is a candidate; then sentinels to the
+    bucketed capacity."""
+    from tpu_pattern_matching_torch.ops.verify_device import INT32_MAX, \
+        next_cap
+
+    C, T = kw["C"], kw["T"]
+    rows = np.arange(0, T - kw["q"] + 1, every)
+    block = kernels.emit_layout(kernels.walk_library(), 0, 0, 0)[
+        "block_slots"]
+    lanes = min(C, -(-(64 * block + 1) // rows.size))
+    dev = args[0].device
+    raw, _ = plant(np.random.RandomState(17), pats, lanes * T, 0.5)
+    data = args[2].clone()
+    data[: lanes * T] = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()
+                                         ).to(dev)
+    bounds = args[3].clone()
+    bounds[0, :lanes] = 0
+    bounds[1, :lanes] = T
+    lane = np.repeat(np.arange(lanes), rows.size).astype(np.int32)
+    row = np.tile(rows, lanes).astype(np.int32)
+    cap = next_cap(lane.size)
+    lane_t = torch.full((cap,), C, dtype=torch.int32, device=dev)
+    row_t = torch.full((cap,), INT32_MAX, dtype=torch.int32, device=dev)
+    lane_t[: lane.size] = torch.from_numpy(lane).to(dev)
+    row_t[: row.size] = torch.from_numpy(row).to(dev)
+    n = torch.tensor([lane.size], dtype=torch.int64, device=dev)
+    return ((args[0], args[1], data, bounds, lane_t, row_t, n, n, args[8]),
+            dict(kw, k_ev=cap))
+
+
+def emit_blocks(kernels, slots: int) -> int:
+    """Blocks of a walk-and-emit launch of ``slots`` slots."""
+    return kernels.emit_layout(kernels.walk_library(), slots, 0, 0)["blocks"]
+
+
+def check_emit(torch, kernels, args, kw, what: str) -> tuple:
+    """Stages 3-5's kernel against their plain version, bit for bit;
+    returns (the plain outputs, max_abs_err, the text of the check)."""
+    from tpu_pattern_matching_torch.ops import verify_device
+
+    got = kernels.launch_walk_and_emit(*args, **kw)
+    torch.cuda.synchronize()
+    want = verify_device.walk_and_emit_plain(*args, **kw)
+    err = max_abs_err(torch, got, want)
+    if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"[kernels] walk and emit, {what}: kernel differs from plain "
+             f"(max_abs_err {err}; meta {got[0].tolist()} vs "
+             f"{want[0].tolist()})")
+    meta = want[0].tolist()
+    slots = args[4].shape[0]
+    return want, err, (
+        f"{what}: {slots} slots ({int(args[6].reshape(()))} live, "
+        f"{emit_blocks(kernels, slots)} blocks) x {kw['steps']} steps "
+        f"over [{kw['C']}, {kw['T']}], k_ev {kw['k_ev']}: meta, packed and "
+        f"gcounts equal, tolerance 0 (meta {meta})")
+
+
+def phase_window_walk(torch, kernels, walks, timed_label, card_line,
+                      pats=None) -> dict:
+    """W2, the walk and emit (stages 3-5), against its plain version on
+    the inputs of a verify run's largest launch of each workload, bit for
+    bit, and timed at ``timed_label``'s (under the launch-count key of its
+    symbol width); at ``timed_label``, also with the event capacity
+    forced below its events, and (given the table's patterns ``pats``)
+    on dense candidates over 64 blocks of slots."""
     from tpu_pattern_matching_torch.ops import verify_device
 
     times = {}
     for label, (args, kw) in walks.items():
-        key = ("window_walk_u16" if args[1].dtype == torch.uint16
+        key = ("window_walk_u16" if args[2].dtype == torch.uint16
                else "window_walk")
-        got = kernels.launch_window_walk(*args, **kw)
-        torch.cuda.synchronize()
-        want = verify_device.window_walk_plain(*args, **kw)
-        err = max_abs_err(torch, got, want)
-        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
-            fail(f"[kernels] window walk, {label}: kernel differs from "
-                 f"plain (max_abs_err {err})")
-        line = (f"[kernels] {key:15s} {label:22s} {args[0].dtype} table, "
-                f"{args[1].dtype} symbols, the verify run's largest launch: "
-                f"{args[3].shape[0]} slots ({int(args[5][0])} live) x "
-                f"{kw['steps']} steps over [{kw['C']}, {kw['T']}]: rep and "
-                f"state equal, tolerance 0 ({int(want[0].sum())} reports)")
-        if label == timed_label:
-            times[key], text = timed(
-                torch,
-                functools.partial(kernels.launch_window_walk, *args, **kw),
-                functools.partial(verify_device.window_walk_plain, *args,
-                                  **kw),
-                500, 5, err, card_line, window_bound(args, kw))
-            line += text
-        print(line, flush=True)
+        want, err, text = check_emit(
+            torch, kernels, args, kw,
+            f"{label}, the verify run's largest launch")
+        print(f"[kernels] {key:15s} {args[0].dtype} table, {args[2].dtype} "
+              f"symbols, {text}", flush=True)
+        if label != timed_label:
+            continue
+        n_ev = int(want[0][0])
+        over = dict(kw, k_ev=max(1, n_ev // 2))
+        _w, _e, text = check_emit(torch, kernels, args, over,
+                                  f"{label}, event capacity forced to "
+                                  f"{over['k_ev']}")
+        print(f"[kernels] {key:15s} {text}", flush=True)
+        if pats:
+            dargs, dkw = dense_candidates(torch, kernels, args, kw, pats)
+            _w, _e, text = check_emit(torch, kernels, dargs, dkw,
+                                      "dense candidates (every 8th row of "
+                                      "whole lanes)")
+            if emit_blocks(kernels, dargs[4].shape[0]) < 64:
+                fail(f"[kernels] the dense-candidate launch has under 64 "
+                     f"blocks ({dargs[4].shape[0]} slots)")
+            print(f"[kernels] {key:15s} {text}", flush=True)
+        bound = window_bound(args, kw, want[0].tolist())
+        times[key], text = timed(
+            torch,
+            functools.partial(kernels.launch_walk_and_emit, *args, **kw),
+            functools.partial(verify_device.walk_and_emit_plain, *args,
+                              **kw),
+            500, 5, err, card_line, bound)
+        print(f"[kernels] {key:15s} {label}, timed ({bound['live']} live "
+              f"slots){text}", flush=True)
     if not times:
-        fail(f"[kernels] no window walk of {timed_label} ({list(walks)})")
+        fail(f"[kernels] no walk and emit of {timed_label} ({list(walks)})")
     return times
 
 
@@ -1210,11 +1460,11 @@ def phase_ushort(torch, kernels, ush, probe_inputs, card_line):
 
     t_phase = time.perf_counter()
     walks = {}
-    launch = kernels.launch_window_walk
+    launch = kernels.launch_walk_and_emit
 
     def keep_largest(*args, **kw):
         best = walks.get("ushort")
-        if best is None or args[3].shape[0] > best[0][3].shape[0]:
+        if best is None or args[4].shape[0] > best[0][4].shape[0]:
             walks["ushort"] = (args, kw)  # fresh tensors, never reused
         return launch(*args, **kw)
 
@@ -1226,7 +1476,7 @@ def phase_ushort(torch, kernels, ush, probe_inputs, card_line):
              ("strided_u16", "window_walk_u16")),
             ("dense", ["--engine", "dense"], ("dense_walk_u16",))]
     reset(kernels)
-    kernels.launch_window_walk = keep_largest
+    kernels.launch_walk_and_emit = keep_largest
     try:
         for label, extra, needed in runs:
             before = dict(kernels.launches)
@@ -1242,7 +1492,7 @@ def phase_ushort(torch, kernels, ush, probe_inputs, card_line):
                   f"tokens/s over the CLI's STATS time (smoke number, "
                   f"{card_line})", flush=True)
     finally:
-        kernels.launch_window_walk = launch
+        kernels.launch_walk_and_emit = launch
     # the sampled (winnowing) uint16 probe: a library session whose filter
     # is forced to the 30,000-signature pick
     t0 = time.perf_counter()
@@ -1495,11 +1745,12 @@ def main() -> None:
         packed_launches, ab_fns = phase_packed(torch, bloom, kernels,
                                                card_line)
         launches["strided_packed"] = packed_launches["strided_packed"]
-        verify_launches, walks = phase_verify(torch, kernels, MatchSession,
-                                              workloads, card_line)
+        verify_launches, walks, dispatch_sessions = phase_verify(
+            torch, kernels, MatchSession, workloads, card_line)
         launches["window_walk"] = verify_launches["window_walk"]
         times.update(phase_window_walk(torch, kernels, walks,
-                                       "bench workload", card_line))
+                                       "bench workload", card_line,
+                                       workloads[0]["pats"]))
         launches["dense_walk"] = phase_dense(
             torch, kernels, MatchSession, workloads, card_line)["dense_walk"]
         u16_launches, u16_walks = phase_ushort(torch, kernels, ush,
@@ -1519,6 +1770,7 @@ def main() -> None:
     for key in ("proto_tile", "proto_grid"):
         launches[key] = proto_launches[key]
     phase_trace(torch, times, main_times, ab_fns, card_line)
+    phase_dispatch(torch, dispatch_sessions, card_line)
     imported = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "tpu_pattern_matching")]
     if imported:
@@ -1534,6 +1786,10 @@ def main() -> None:
          "bound_by": times[key]["bound_by"],
          "share": times[key]["bound_ms"] / times[key]["ms"],
          "library_ms": None,  # no PyTorch call probes a bloom or walks a DFA
+         # W2's ms is its kernel's; call_ms adds the two fills of its buffer,
+         # the scope of its bound_ms and plain_ms
+         **({"call_ms": times[key]["call_ms"]}
+            if "call_ms" in times[key] else {}),
          **({"main_path": {
              k: main_times[key][k] for k in (
                  "label", "config", "shape", "max_abs_err", "ms", "plain_ms",

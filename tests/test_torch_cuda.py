@@ -154,31 +154,54 @@ def walk_case(cuda, table_dtype, n_pats):
             torch.from_numpy(np.stack([start, end])).to(cuda), halo)
 
 
-@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
-def test_window_walk_kernel_equals_plain(cuda, table_dtype):
+EMIT_CASES = {  # name: (candidate draws, slots, k_ev)
+    "fits": (3000, 3200, 1 << 16),
+    "event-overflow": (3000, 3200, 64),
+    "100-blocks": (12000, 12800, 1 << 16),  # the look-back crosses blocks
+}
+
+
+def check_walk_and_emit(cuda, dt, data, bounds, halo, alphabet_size, seed,
+                        case):
+    """Stages 3-5's kernel against their plain version on random sorted
+    candidates of the batch (sentinels after them), bit for bit."""
     from tpu_pattern_matching_torch.ops import verify_device
 
-    dt, data, bounds, halo = walk_case(cuda, table_dtype, 40)
+    draws, slots, k_ev = EMIT_CASES[case]
     C, T = data.shape
-    rng = np.random.RandomState(8)
-    keys = np.unique(rng.randint(0, C, size=3000) * T
-                     + rng.randint(0, T - 2, size=3000))
-    lane = np.full(3200, C, np.int32)
-    row = np.full(3200, 0x7FFFFFFF, np.int32)
+    rng = np.random.RandomState(seed)
+    keys = np.unique(rng.randint(0, C, size=draws) * T
+                     + rng.randint(0, T - 2, size=draws))
+    lane = np.full(slots, C, np.int32)
+    row = np.full(slots, 0x7FFFFFFF, np.int32)
     lane[: len(keys)] = keys // T
     row[: len(keys)] = keys % T
-    args = (dt.table_flat, data.reshape(-1), bounds,
+    n = torch.tensor([len(keys)], dtype=torch.int64, device=cuda)
+    args = (dt.table_flat, dt.state_gid, data.reshape(-1), bounds,
             torch.from_numpy(lane).to(cuda), torch.from_numpy(row).to(cuda),
-            torch.tensor([len(keys)], dtype=torch.int64, device=cuda))
-    kw = dict(C=C, T=T, alphabet_size=256, q=2, lmax=dt.max_pat_len,
-              halo=halo, steps=verify_device.walk_steps(dt.max_pat_len, 2))
-    before = kernels.launches["window_walk"]
-    rep, st = kernels.launch_window_walk(*args, **kw)
+            n, n + 5, torch.tensor([1], dtype=torch.int32, device=cuda))
+    kw = dict(C=C, T=T, alphabet_size=alphabet_size, q=2,
+              lmax=dt.max_pat_len, halo=halo, k_ev=k_ev,
+              num_groups=dt.num_groups,
+              steps=verify_device.walk_steps(dt.max_pat_len, 2))
+    key = "window_walk_u16" if data.dtype == torch.uint16 else "window_walk"
+    before = kernels.launches[key]
+    got = kernels.launch_walk_and_emit(*args, **kw)
     torch.cuda.synchronize()
-    assert kernels.launches["window_walk"] == before + 1
-    p_rep, p_st = verify_device.window_walk_plain(*args, **kw)
-    assert torch.equal(rep, p_rep) and torch.equal(st, p_st)
-    assert int(p_rep.sum()) > 100
+    assert kernels.launches[key] == before + 1
+    want = verify_device.walk_and_emit_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    meta = want[0].cpu().numpy()
+    assert meta[0] > 100 and bool(meta[3] & 2) == (case == "event-overflow")
+    assert meta[3] & 1 and meta[2] == len(keys) + 5
+
+
+@pytest.mark.parametrize("case", list(EMIT_CASES))
+@pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
+def test_window_walk_kernel_equals_plain(cuda, table_dtype, case):
+    dt, data, bounds, halo = walk_case(cuda, table_dtype, 40)
+    check_walk_and_emit(cuda, dt, data, bounds, halo, 256, 8, case)
 
 
 @pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
@@ -372,31 +395,11 @@ def test_u16_dense_walk_kernel_equals_plain(cuda, table_dtype):
     assert int(want[0].max()) > 8
 
 
+@pytest.mark.parametrize("case", list(EMIT_CASES))
 @pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
-def test_u16_window_walk_kernel_equals_plain(cuda, table_dtype):
-    from tpu_pattern_matching_torch.ops import verify_device
-
+def test_u16_window_walk_kernel_equals_plain(cuda, table_dtype, case):
     dt, data, bounds, halo = u16_walk_case(cuda, table_dtype)
-    C, T = data.shape
-    rng = np.random.RandomState(22)
-    keys = np.unique(rng.randint(0, C, size=3000) * T
-                     + rng.randint(0, T - 2, size=3000))
-    lane = np.full(3200, C, np.int32)
-    row = np.full(3200, 0x7FFFFFFF, np.int32)
-    lane[: len(keys)] = keys // T
-    row[: len(keys)] = keys % T
-    args = (dt.table_flat, data.reshape(-1), bounds,
-            torch.from_numpy(lane).to(cuda), torch.from_numpy(row).to(cuda),
-            torch.tensor([len(keys)], dtype=torch.int64, device=cuda))
-    kw = dict(C=C, T=T, alphabet_size=2048, q=2, lmax=dt.max_pat_len,
-              halo=halo, steps=verify_device.walk_steps(dt.max_pat_len, 2))
-    before = kernels.launches["window_walk_u16"]
-    rep, st = kernels.launch_window_walk(*args, **kw)
-    torch.cuda.synchronize()
-    assert kernels.launches["window_walk_u16"] == before + 1
-    p_rep, p_st = verify_device.window_walk_plain(*args, **kw)
-    assert torch.equal(rep, p_rep) and torch.equal(st, p_st)
-    assert int(p_rep.sum()) > 100
+    check_walk_and_emit(cuda, dt, data, bounds, halo, 2048, 22, case)
 
 
 def test_ushort_sessions_on_cuda_equal_oracle(cuda):
@@ -428,17 +431,18 @@ def test_ushort_sessions_on_cuda_equal_oracle(cuda):
 
 
 def test_proto_probe_kernel_equals_plain(cuda):
-    # the prototype probe: the one-tile form at its own shape and a 4-tile
-    # grid at the grid's lane width
+    # the prototype probe: the one-tile form at its own shape (a small
+    # launch: items of 4 lanes) and a 16-tile grid at the grid's lane width
+    # (items of 16 lanes, 16-byte rows), then 68 lanes (4-byte rows)
     from tpu_pattern_matching_torch.benchmarks import exp_bloom as eb
 
     bloom_np, mix1, mix2, rng = eb.make_tables(0)
     bloom = torch.from_numpy(bloom_np).to(cuda)
     tile = rng.randint(0, 256, size=(eb.G * eb.S + eb.Q, eb.C))
-    grid = rng.randint(0, 256, size=(4 * (eb.TT + eb.PADR), eb.CT))
+    grid = rng.randint(0, 256, size=(16 * (eb.TT + eb.PADR), eb.CT))
     for key, run, data, geom in (
             ("proto_tile", eb.run_probe, tile, dict(eb.TILE, tiles=1)),
-            ("proto_grid", eb.run_grid, grid, dict(eb.GRID, tiles=4))):
+            ("proto_grid", eb.run_grid, grid, dict(eb.GRID, tiles=16))):
         data = torch.from_numpy(data.astype(np.uint8)).to(cuda)
         before = kernels.launches[key]
         got = run(data, bloom, mix1, mix2)
@@ -447,3 +451,10 @@ def test_proto_probe_kernel_equals_plain(cuda):
         want = eb.probe_plain(data, bloom, mix1, mix2, **geom)
         want = want[0] if key == "proto_tile" else want
         assert torch.equal(got, want) and int(want.sum()) > 0
+    geom = dict(rows=10, stride=3, q=5, pitch=35, tiles=2)
+    data = torch.from_numpy(rng.randint(0, 256, size=(70, 68)).astype(
+        np.uint8)).to(cuda)
+    got = kernels.launch_proto_probe(data, bloom, mix1[:5], mix2[:5],
+                                     kind="grid", **geom)
+    want = eb.probe_plain(data, bloom, mix1[:5], mix2[:5], **geom)
+    assert torch.equal(got, want) and int(want.sum()) > 0

@@ -159,8 +159,11 @@ HOST_CASES = {  # name: (rows, stride, q, pitch, tiles, lanes, kbanks, v)
 }
 
 
+@pytest.mark.parametrize("wpi", [4, 1])
 @pytest.mark.parametrize("name", list(HOST_CASES))
-def test_kernel_thread_code_equals_plain(name):
+def test_kernel_thread_code_equals_plain(name, wpi):
+    # items of 16 lanes (a large launch) and of 4 (a small one); lanes 68
+    # and 36 end on a partial 16-lane item
     rows, stride, q, pitch, tiles, lanes, k, v = HOST_CASES[name]
     geom = dict(rows=rows, stride=stride, q=q, pitch=pitch, tiles=tiles)
     rng = np.random.RandomState(len(name))
@@ -175,7 +178,7 @@ def test_kernel_thread_code_equals_plain(name):
     want = plain(data, bloom, mix1, mix2, **geom)
     got = kernels.proto_probe_on_host(torch.from_numpy(data),
                                       torch.from_numpy(bloom), mix1, mix2,
-                                      **geom)
+                                      words_per_item=wpi, **geom)
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < want.size
 
@@ -200,6 +203,9 @@ def test_rejected_arguments_raise():
     # the kernel's own checks, through its CPU harness
     with pytest.raises(RuntimeError, match="rejected"):
         kernels.proto_probe_on_host(ok, b, mix1, mix2, **dict(ONE, rows=42))
+    with pytest.raises(RuntimeError, match="rejected"):
+        kernels.proto_probe_on_host(ok, b, mix1, mix2, words_per_item=2,
+                                    **ONE)
 
 
 def test_main_on_cpu_and_no_fallback(capsys, monkeypatch):

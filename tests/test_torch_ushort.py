@@ -5,7 +5,8 @@ reference, on the CPU: uint16 token lanes over the alphabet of 2048.
   interpret mode (sampled and strided), and the refined probe with 11-bit
   exact-gram keys equals ``_hits_refined_jit``.
 - The dense walk equals ``scan_batch``; ``verify_candidates`` (the window
-  walk inside) equals ``_verify_jit``, unrefined and refined.
+  walk and its compaction inside) equals ``_verify_jit``, unrefined and
+  refined.
 - The kernels' per-thread code (csrc/*.cuh, built with g++) at uint16
   equals the plain versions, the dense walk's sub-spans included.
 - ``MatchSession.find`` on flow text, on all three paths, equals
@@ -314,17 +315,23 @@ def test_verify_candidates_u16_equals_reference(table_dtype, exact):
     for got, want in zip(p, r):
         np.testing.assert_array_equal(got.numpy(), want)
     assert r[0][0] > 0 and (r[0][4] < r[0][2]) == exact
-    # the window walk's per-thread code at uint16, on the same candidates
+    # the walk-and-emit kernel's per-slot code at uint16, on the same
+    # candidates, with and without an event overflow
     n, lane, row, _ = port_vd.bitmap_to_candidates(torch.from_numpy(bits),
                                                    cfg.stride, 1024)
-    wargs = (torch.from_numpy(flat), torch.from_numpy(data.reshape(-1)),
-             torch.from_numpy(bounds), lane, row, n.reshape(1))
-    wkw = dict(C=C, T=T, alphabet_size=A, q=cfg.q, lmax=table.max_pat_len,
-               halo=halo, steps=port_vd.walk_steps(table.max_pat_len, cfg.q))
-    h = kernels.window_walk_on_host(*wargs, **wkw)
-    w = port_vd.window_walk_plain(*wargs, **wkw)
-    assert torch.equal(h[0], w[0]) and torch.equal(h[1], w[1])
-    assert int(w[0].sum()) > 0
+    wargs = (torch.from_numpy(flat), torch.from_numpy(gid),
+             torch.from_numpy(data.reshape(-1)), torch.from_numpy(bounds),
+             lane, row, n.reshape(1), n.reshape(1),
+             torch.zeros(1, dtype=torch.int32))
+    for k_ev in (1024, 8):
+        wkw = dict(C=C, T=T, alphabet_size=A, q=cfg.q,
+                   lmax=table.max_pat_len, halo=halo, k_ev=k_ev,
+                   num_groups=table.num_groups,
+                   steps=port_vd.walk_steps(table.max_pat_len, cfg.q))
+        h = kernels.walk_and_emit_on_host(*wargs, **wkw)
+        w = port_vd.walk_and_emit_plain(*wargs, **wkw)
+        assert all(torch.equal(a, b) for a, b in zip(h, w))
+        assert int(w[0][0]) > 8 and bool(w[0][3] & 2) == (k_ev == 8)
 
 
 SIGS = [(40, 32, 287, 32, 106, 196), (40, 32, 287, 32, 106, 186, 32),

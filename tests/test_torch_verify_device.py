@@ -1,8 +1,10 @@
 """Device verify of the PyTorch port against the JAX reference, on the CPU.
 
-- The window walk's plain PyTorch version (the CPU path, and what the CUDA
-  kernel is held to on the card) and the kernel's own per-thread code
-  (csrc/dfa_walk.cuh, built with g++) agree.
+- Stages 3-5's plain PyTorch version (the CPU path, and what the CUDA
+  kernel is held to on the card) and the walk-and-emit kernel's own
+  per-slot code (csrc/dfa_walk.cuh, built with g++, with a sequential
+  scan in place of the kernel's chained one) agree, at both table and
+  symbol widths, through an event overflow.
 - ``verify_candidates`` equals the reference's ``_verify_jit`` on the same
   bitmap — meta, events and group counts — with and without exact-gram
   refinement, at int16 and int32 tables, through the capacity overflows.
@@ -66,33 +68,100 @@ def verify_case(seed, table_dtype, C=24, T=160, halo=8, force=None):
     return table, bft, data, bounds, bits, halo
 
 
-def walk_inputs(seed, table_dtype):
+def emit_inputs(seed, table_dtype, sym):
+    """The inputs of stages 3-5 on ``verify_case``'s batch: its bitmap's
+    candidates in 1024 slots (sentinels past them), several to a lane and
+    some in its empty lane 2; lane 9 all a's with one candidate, and the
+    pattern "aa" added, so that its slot reports at every row of its
+    window past the halo (more than ``kKeep`` events); ``sym`` "uint16"
+    takes the same patterns and data over the alphabet of 2048, with the
+    byte d as token 3000 (read as 2047)."""
     table, bft, data, bounds, bits, halo = verify_case(seed, table_dtype)
-    k = 1024
+    bits[0, 2] |= 0x00FF00FF  # candidates in the empty lane
+    data[9] = ord("a")
+    bits[:, 9] = 0
+    bits[0, 9] = 1 << -(-halo // bft.cfg.stride)
+    A = 2048 if sym == "uint16" else 256
+    ac = AhoCorasick(A)
+    for p in table.patterns:
+        ac.add_pattern(tuple(p.symbols))
+    ac.add_pattern((97, 97))
+    table = ac.compile()
+    table.goto_signed = table.goto_signed.astype(table_dtype)
+    if sym == "uint16":
+        data = data.astype(np.uint16)
+        data[data == ord("d")] = 3000
     n, lane, row, _ = port_vd.bitmap_to_candidates(
-        torch.from_numpy(bits), bft.cfg.stride, k)
+        torch.from_numpy(bits), bft.cfg.stride, 1024)
     return dict(
-        table_flat=torch.from_numpy(table.goto_signed.reshape(-1)),
+        table_flat=torch.from_numpy(
+            np.ascontiguousarray(table.goto_signed).reshape(-1)),
+        state_gid=torch.from_numpy(table.state_gid.astype(np.int32)),
         data_flat=torch.from_numpy(data.reshape(-1)),
         bounds=torch.from_numpy(bounds), lane=lane, row=row,
-        n_valid=n.reshape(1),
-    ), dict(C=data.shape[0], T=data.shape[1], alphabet_size=256,
-            q=bft.cfg.q, lmax=table.max_pat_len, halo=halo)
+        n_exact=n.reshape(1), n_cand=(n + 7).reshape(1),
+        base_flags=torch.tensor([4], dtype=torch.int32),
+    ), dict(C=data.shape[0], T=data.shape[1], alphabet_size=A, q=bft.cfg.q,
+            lmax=table.max_pat_len, halo=halo, num_groups=table.num_groups,
+            steps=port_vd.walk_steps(table.max_pat_len, bft.cfg.q))
 
 
+def slot_events(t, kw, packed):
+    """Events per live slot: those of its lane inside its keep interval."""
+    n = int(t["n_exact"][0])
+    lane, row = t["lane"].numpy()[:n], t["row"].numpy()[:n].astype(np.int64)
+    end = t["bounds"].numpy()[1][np.minimum(lane, kw["C"] - 1)]
+    nxt = np.append(np.where(lane[1:] == lane[:-1], row[1:], 2**40), 2**40)
+    lo = np.maximum(row + kw["q"] - 1, kw["halo"])
+    hi = np.minimum(nxt + kw["q"] - 1, end)
+    ev_lane, ev_end = packed[0], packed[1]
+    return np.array([((ev_lane == ln) & (ev_end >= a) & (ev_end < b)).sum()
+                     for ln, a, b in zip(lane, lo, hi)])
+
+
+@pytest.mark.parametrize("k_ev", [1024, 24])
+@pytest.mark.parametrize("sym", ["uint8", "uint16"])
 @pytest.mark.parametrize("table_dtype", [np.int16, np.int32])
-def test_window_walk_kernel_body_on_host_equals_plain(table_dtype):
-    t, kw = walk_inputs(1, table_dtype)
-    steps = port_vd.walk_steps(kw["lmax"], kw["q"])
-    h_rep, h_st = kernels.window_walk_on_host(**t, **kw, steps=steps)
-    p_rep, p_st = port_vd.window_walk_plain(**t, **kw, steps=steps)
-    assert torch.equal(h_rep, p_rep) and torch.equal(h_st, p_st)
-    assert int(p_rep.sum()) > 10  # reports were compared
-    assert int(t["n_valid"][0]) < t["lane"].shape[0]  # and sentinel slots
-    assert not p_rep[int(t["n_valid"][0]):].any()
+def test_walk_and_emit_kernel_body_on_host_equals_plain(table_dtype, sym,
+                                                         k_ev):
+    # the kernel's per-slot count and emit steps (csrc/dfa_walk.cuh, g++)
+    # with a sequential scan, against the plain stages 3-5: meta, events
+    # and group counts, with and without an event overflow
+    t, kw = emit_inputs(1, table_dtype, sym)
+    h = kernels.walk_and_emit_on_host(**t, **kw, k_ev=k_ev)
+    p = port_vd.walk_and_emit_plain(**t, **kw, k_ev=k_ev)
+    for got, want in zip(h, p):
+        assert got.dtype == want.dtype == torch.int32
+        assert torch.equal(got, want)
+    meta, packed, gc = (x.numpy() for x in p)
+    n_valid, lane = int(t["n_exact"][0]), t["lane"].numpy()
+    assert meta[0] > 30 and meta[2] == n_valid + 7 and meta[4] == n_valid
+    assert n_valid < lane.shape[0]  # sentinel slots
+    assert bool(meta[3] & 2) == (k_ev < meta[0]) and meta[3] & 4
+    assert meta[1] == min(meta[0], k_ev) and 0 < gc.sum() <= meta[1]
+    assert (packed[:, meta[1]:] == np.array([[-1], [-1], [0]])).all()
+    live = lane[:n_valid]
+    assert (live == 2).any() and not (packed[0, :meta[1]] == 2).any()
+    assert np.bincount(live).max() > 3  # lanes of several candidates
+    if k_ev > meta[0]:  # slots of 1 to 4 events (kept in registers by the
+        #                 count walk) and of more (walked again)
+        per_slot = slot_events(t, kw, packed[:, :meta[1]])
+        assert per_slot.max() > 4 and ((per_slot > 0) & (per_slot <= 4)).any()
     # the dispatcher takes the plain version for CPU tensors
-    d_rep, d_st = port_vd.window_walk(**t, **kw)
-    assert torch.equal(d_rep, p_rep) and torch.equal(d_st, p_st)
+    kw.pop("steps")
+    d = port_vd.walk_and_emit(**t, **kw, k_ev=k_ev)
+    assert all(torch.equal(a, b) for a, b in zip(d, p))
+
+
+def test_walk_and_emit_raises_off_cpu_and_cuda():
+    t, kw = emit_inputs(1, np.int16, "uint8")
+    kw.pop("steps")
+    t["table_flat"] = t["table_flat"].to("meta")
+    with pytest.raises(ValueError, match="no walk and emit for device meta"):
+        port_vd.walk_and_emit(**t, **kw, k_ev=64)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        kernels.launch_walk_and_emit(**emit_inputs(1, np.int16, "uint8")[0],
+                                     **kw, k_ev=64, steps=8)
 
 
 VERIFY_CASES = {  # name: (seed, table dtype, exact, k_ev, k_walk, force)

@@ -1,5 +1,6 @@
 // The signed-table DFA step and the per-thread bodies of both walk
-// kernels (dfa_walk.cu). Every function is __host__ __device__:
+// kernels (dfa_walk.cu). Every function but the launch plans and layouts
+// is __host__ __device__:
 // dfa_walk_host.cpp runs the same code on the CPU, so the tests can hold
 // the kernels' arithmetic to the reference without a GPU.
 //
@@ -20,6 +21,13 @@
 #define TPM_HD __host__ __device__ __forceinline__
 #else
 #define TPM_HD inline
+#endif
+#endif
+#ifndef TPM_UNROLL
+#ifdef __CUDACC__
+#define TPM_UNROLL _Pragma("unroll")
+#else
+#define TPM_UNROLL
 #endif
 #endif
 
@@ -58,50 +66,191 @@ struct WindowParams {
   int halo;  // prefix halo of every lane
   int kw;    // candidate slots
   int WLp;   // steps per window: 2*lmax - q rounded up to a multiple of 4
+  int k_ev;  // event capacity of the packed output
+  int G;     // match groups (gcounts length)
 };
 
-// Stage 3 of the reference's device verify (ops/verify_device.py
-// _verify_kernel) for candidate slot i: the window of the gram at `row`
-// of `lane` is walked from the root for exactly WLp steps, starting at
-// w0 = row - (lmax - q). Step t reads data[clip(lane*T + w0 + t)] and
-// advances only inside the lane's span [start_t, end_t); it reports iff
-// the entry is final and the end pos = w0 + t lies in [keep_lo, keep_hi):
-// keep_lo = max(row + q - 1, halo), keep_hi = min(next candidate row of
-// the same lane + q - 1, end_t). That interval gives every match end to
-// exactly one candidate. Slots at i >= n_valid (the sentinels of the
-// compaction) walk an empty span: no reports, state 0.
-// Writes rep[i, t] (0/1) and state[i, t] (after the step), row-major.
-template <typename TT, typename Sym>
-TPM_HD void window_walk(const TT* table, const Sym* data,
-                        const int32_t* bounds, const int32_t* lane,
-                        const int32_t* row, int64_t n_valid,
-                        const WindowParams& p, int i, uint8_t* rep,
-                        int32_t* state_out) {
+// Stages 3-5 of the reference's device verify (ops/verify_device.py
+// _verify_kernel): each candidate slot's window walk (stage 3), its
+// reports compacted to (lane, end, state) events in slot order (stage 4)
+// and the group counts of the events kept (stage 5), in two steps per
+// slot that the kernel and the CPU harness share: window_count counts the
+// slot's reports and keeps the first kKeep of them, an exclusive scan of
+// the counts gives each slot its first event, and window_emit writes its
+// events there, up to the capacity k_ev: the kept ones, or, for a slot
+// of more reports, all of them from a second walk of its window.
+//
+// Slot i walks the window of the gram at `row` of `lane` from the root
+// for WLp steps from w0 = row - (lmax - q); step t reads
+// data[clip(lane*T + w0 + t)] and advances only inside the lane's span
+// [start_t, end_t); it reports iff the entry is final and the end pos =
+// w0 + t lies in [keep_lo, keep_hi): keep_lo = max(row + q - 1, halo),
+// keep_hi = min(next candidate row of the same lane + q - 1, end_t).
+// That interval gives every match end to exactly one candidate, and the
+// intervals ascend with the slots, so slot order is (lane, end) order.
+// Slots at i >= n_valid (the sentinels of the compaction) walk an empty
+// span and report nothing. The state stays 0 before start_t and nothing
+// is reported from keep_hi on, so a slot walks only steps [t0, t1).
+struct WindowSlot {
+  int64_t w0;       // data position of step 0
+  int64_t base;     // flat index of step 0: lane * T + w0
+  int64_t keep_lo;  // reports only at positions >= keep_lo
+  int t0, t1;       // the steps that can advance the state and report
+  int32_t lane;     // the slot's lane as compacted (the event's lane)
+};
+
+TPM_HD WindowSlot window_slot(const int32_t* bounds, const int32_t* lane,
+                              const int32_t* row, int64_t n_valid,
+                              const WindowParams& p, int i) {
   const bool cand_valid = i < n_valid;
   const int64_t r = row[i];
   const int lane_c = lane[i] < p.C - 1 ? lane[i] : p.C - 1;
   const int64_t st = cand_valid ? bounds[lane_c] : 0;
   const int64_t en = cand_valid ? bounds[p.C + lane_c] : 0;
-  const int64_t w0 = r - (p.lmax - p.q);
-  const int64_t base = (int64_t)lane_c * p.T + w0;
-  const int64_t last = (int64_t)p.C * p.T - 1;
-  const int64_t keep_lo = r + p.q - 1 > p.halo ? r + p.q - 1 : p.halo;
   const int64_t rnext =
       (i + 1 < p.kw && lane[i + 1] == lane[i]) ? row[i + 1] : kI32Max;
   int64_t keep_hi = rnext >= kI32Max - p.q ? kI32Max : rnext + p.q - 1;
   if (en < keep_hi) keep_hi = en;
-  uint8_t* rep_i = rep + (int64_t)i * p.WLp;
-  int32_t* st_i = state_out + (int64_t)i * p.WLp;
+  WindowSlot s;
+  s.w0 = r - (p.lmax - p.q);
+  s.base = (int64_t)lane_c * p.T + s.w0;
+  s.keep_lo = r + p.q - 1 > p.halo ? r + p.q - 1 : p.halo;
+  s.lane = lane[i];
+  const int64_t hi = keep_hi - s.w0, lo = st - s.w0;
+  s.t1 = hi < 0 ? 0 : (hi > p.WLp ? p.WLp : (int)hi);
+  s.t0 = lo < 0 ? 0 : (lo > s.t1 ? s.t1 : (int)lo);
+  return s;
+}
+
+// A slot's report count and its first kKeep reports (step, state): most
+// slots of a refined batch report once or twice, so their events need no
+// second walk. Indexed only by constants, so they stay in registers.
+constexpr int kKeep = 4;
+
+struct WindowReports {
+  int32_t n;
+  int32_t t[kKeep];
+  int32_t state[kKeep];
+};
+
+template <typename TT, typename Sym>
+TPM_HD WindowReports window_count(const TT* table, const Sym* data,
+                                  const WindowSlot& s,
+                                  const WindowParams& p) {
+  const int64_t last = (int64_t)p.C * p.T - 1;
+  WindowReports r;
+  r.n = 0;
+  TPM_UNROLL
+  for (int k = 0; k < kKeep; ++k) r.t[k] = r.state[k] = 0;
   int32_t state = 0;
-  for (int t = 0; t < p.WLp; ++t) {
-    const int64_t pos = w0 + t;
-    int64_t idx = base + t;
+  for (int t = s.t0; t < s.t1; ++t) {
+    int64_t idx = s.base + t;
     idx = idx < 0 ? 0 : (idx > last ? last : idx);
-    const bool valid = pos >= st && pos < en;
-    const int32_t raw = dfa_step(table, p.A, state, (int32_t)data[idx], valid);
-    rep_i[t] = (uint8_t)(raw < 0 && valid && pos >= keep_lo && pos < keep_hi);
-    st_i[t] = state;
+    const int32_t raw = dfa_step(table, p.A, state, (int32_t)data[idx], true);
+    if (raw < 0 && s.w0 + t >= s.keep_lo) {
+      TPM_UNROLL
+      for (int k = 0; k < kKeep; ++k)
+        if (k == r.n) {
+          r.t[k] = t;
+          r.state[k] = state;
+        }
+      ++r.n;
+    }
   }
+  return r;
+}
+
+// Event e of packed [3, k_ev] (lane, end, state), and its group count.
+TPM_HD void emit_event(const int32_t* state_gid, const WindowSlot& s,
+                       const WindowParams& p, int64_t e, int t,
+                       int32_t state, int32_t* packed, int32_t* gcounts) {
+  packed[e] = s.lane;
+  packed[p.k_ev + e] = (int32_t)(s.w0 + t);  // in [halo, end_t)
+  packed[2 * (int64_t)p.k_ev + e] = state;
+  const int32_t gid = state_gid[state];
+  if (gid >= 0 && gid < p.G) add_one(gcounts + gid);
+}
+
+// Writes the slot's events at `first`, first + 1, ... below k_ev, each
+// adding one to gcounts[state_gid[state]] when that group is >= 0: the
+// kept reports, or (more than kKeep) all, from a second walk.
+template <typename TT, typename Sym>
+TPM_HD void window_emit(const TT* table, const Sym* data,
+                        const int32_t* state_gid, const WindowSlot& s,
+                        const WindowReports& r, const WindowParams& p,
+                        int64_t first, int32_t* packed, int32_t* gcounts) {
+  if (r.n <= kKeep) {
+    TPM_UNROLL
+    for (int k = 0; k < kKeep; ++k)
+      if (k < r.n && first + k < p.k_ev)
+        emit_event(state_gid, s, p, first + k, r.t[k], r.state[k], packed,
+                   gcounts);
+    return;
+  }
+  const int64_t last = (int64_t)p.C * p.T - 1;
+  int64_t e = first;
+  int32_t state = 0;
+  for (int t = s.t0; t < s.t1 && e < p.k_ev; ++t) {
+    int64_t idx = s.base + t;
+    idx = idx < 0 ? 0 : (idx > last ? last : idx);
+    const int32_t raw = dfa_step(table, p.A, state, (int32_t)data[idx], true);
+    if (raw < 0 && s.w0 + t >= s.keep_lo)
+      emit_event(state_gid, s, p, e++, t, state, packed, gcounts);
+  }
+}
+
+// meta = [n_events, reported, n_cand, flags, n_exact]: n_events exact (as
+// int32), reported = min(n_events, k_ev), the counts clipped to int32,
+// flags = base_flags | bit 1 when the events overflowed k_ev.
+TPM_HD void window_meta(int64_t n_events, int64_t n_cand, int64_t n_exact,
+                        int32_t base_flags, const WindowParams& p,
+                        int32_t* meta) {
+  meta[0] = (int32_t)n_events;
+  meta[1] = (int32_t)(n_events < p.k_ev ? n_events : p.k_ev);
+  meta[2] = (int32_t)(n_cand < kI32Max ? n_cand : kI32Max);
+  meta[3] = base_flags | ((n_events > p.k_ev ? 1 : 0) << 1);
+  meta[4] = (int32_t)(n_exact < kI32Max ? n_exact : kI32Max);
+}
+
+// One int32 buffer holds the outputs and the scratch of a launch, so that
+// two fills prepare it: packed [3, k_ev] (rows 0-1 filled with -1, row 2
+// with 0), gcounts [G], meta [5], then (8-byte aligned) the blocks'
+// ticket counter and a pad word, and one 64-bit look-back word per block
+// of kEmitBlock slots, all zeroed. Offsets in int32 words.
+constexpr int kEmitBlock = 128;  // slots per block of the walk-and-emit kernel
+
+struct EmitLayout {
+  int64_t gcounts, meta, counters, look, total;
+  int blocks;
+};
+
+inline EmitLayout emit_layout(const WindowParams& p) {
+  EmitLayout l;
+  l.blocks = p.kw > 0 ? (p.kw + kEmitBlock - 1) / kEmitBlock : 1;
+  l.gcounts = 3 * (int64_t)p.k_ev;
+  l.meta = l.gcounts + p.G;
+  l.counters = (l.meta + 5 + 1) & ~(int64_t)1;
+  l.look = l.counters + 2;
+  l.total = l.look + 2 * (int64_t)l.blocks;
+  return l;
+}
+
+// The layout as the entry points tpm_emit_layout[_host] give it to the
+// caller, which splits its one buffer by these offsets: out = [gcounts,
+// meta, total, blocks, kEmitBlock].
+inline int emit_layout_out(int kw, int k_ev, int G, long long* out) {
+  if (kw < 0 || k_ev < 0 || G < 0) return kWalkBadArgs;
+  WindowParams p{};
+  p.kw = kw;
+  p.k_ev = k_ev;
+  p.G = G;
+  const EmitLayout l = emit_layout(p);
+  out[0] = l.gcounts;
+  out[1] = l.meta;
+  out[2] = l.total;
+  out[3] = l.blocks;
+  out[4] = kEmitBlock;
+  return 0;
 }
 
 struct DenseParams {
@@ -236,8 +385,9 @@ inline DensePlan dense_plan(int T, int C, int halo, int warm, int n_sm) {
 
 inline bool window_params_ok(const WindowParams& p) {
   return p.C > 0 && p.T > 0 && p.A > 0 && p.q >= 1 && p.lmax >= p.q &&
-         p.halo >= 0 && p.kw > 0 && p.WLp >= 2 * p.lmax - p.q &&
-         p.WLp % 4 == 0 && (int64_t)p.kw * p.WLp < ((int64_t)1 << 40);
+         p.halo >= 0 && p.kw >= 0 && p.WLp >= 2 * p.lmax - p.q &&
+         p.WLp % 4 == 0 && (int64_t)p.kw * p.WLp < ((int64_t)1 << 40) &&
+         p.k_ev >= 0 && p.G >= 0;
 }
 
 inline bool dense_params_ok(const DenseParams& p) {

@@ -1,10 +1,13 @@
 // The walk kernels' per-thread bodies (dfa_walk.cuh), run on the CPU over
 // the whole launch: thread i of the kernel grid becomes loop iteration i
-// (the dense walk: a lane's sub-spans in turn, then its merge). Built with
-// g++ (no CUDA needed), so the tests can hold the kernels' arithmetic to
-// the reference without a GPU. Same arguments and outputs as the entry
-// points of dfa_walk.cu, minus the stream (n_valid points to a host int64
-// here), and S may pass the kernel's 32; returns 0 or tpm::kWalkBadArgs.
+// (the walk and emit: every slot's count, a sequential exclusive scan in
+// place of the kernel's block scan and look-back, then every slot's
+// events and meta; the dense walk: a lane's sub-spans in turn, then its
+// merge). Built with g++ (no CUDA needed), so the tests can hold the
+// kernels' arithmetic to the reference without a GPU. Same arguments and
+// outputs as the entry points of dfa_walk.cu, minus the stream (the
+// device scalars point to host values here), and S may pass the kernel's
+// 32; returns 0 or tpm::kWalkBadArgs.
 #include <vector>
 
 #include <stdint.h>
@@ -14,16 +17,32 @@
 namespace {
 
 template <typename TT, typename Sym>
-void window_all(const void* table, const void* data, const void* bounds,
-                const void* lane, const void* row, int64_t n_valid,
-                const tpm::WindowParams& p, void* rep, void* state) {
-  for (int i = 0; i < p.kw; ++i)
-    tpm::window_walk(static_cast<const TT*>(table),
-                     static_cast<const Sym*>(data),
-                     static_cast<const int32_t*>(bounds),
-                     static_cast<const int32_t*>(lane),
-                     static_cast<const int32_t*>(row), n_valid, p, i,
-                     static_cast<uint8_t*>(rep), static_cast<int32_t*>(state));
+void emit_all(const void* table, const void* data, const void* bounds,
+              const void* lane, const void* row, const void* state_gid,
+              int64_t n_valid, int64_t n_cand, int32_t base_flags,
+              const tpm::WindowParams& p, int32_t* buf) {
+  const tpm::EmitLayout l = tpm::emit_layout(p);
+  for (int64_t e = 0; e < 2 * (int64_t)p.k_ev; ++e) buf[e] = -1;
+  for (int64_t e = 2 * (int64_t)p.k_ev; e < l.total; ++e) buf[e] = 0;
+  const auto* tb = static_cast<const TT*>(table);
+  const auto* dt = static_cast<const Sym*>(data);
+  std::vector<tpm::WindowSlot> slots(p.kw);
+  std::vector<tpm::WindowReports> reports(p.kw);
+  for (int i = 0; i < p.kw; ++i) {
+    slots[i] = tpm::window_slot(static_cast<const int32_t*>(bounds),
+                                static_cast<const int32_t*>(lane),
+                                static_cast<const int32_t*>(row), n_valid, p,
+                                i);
+    reports[i] = tpm::window_count(tb, dt, slots[i], p);
+  }
+  int64_t first = 0;  // the exclusive scan of the counts
+  for (int i = 0; i < p.kw; ++i) {
+    if (reports[i].n)
+      tpm::window_emit(tb, dt, static_cast<const int32_t*>(state_gid),
+                       slots[i], reports[i], p, first, buf, buf + l.gcounts);
+    first += reports[i].n;
+  }
+  tpm::window_meta(first, n_cand, n_valid, base_flags, p, buf + l.meta);
 }
 
 template <typename TT, typename Sym>
@@ -51,16 +70,16 @@ void dense_all(const void* table, const void* data_tm, const void* bounds,
 }
 
 template <typename TT>
-void window_any(int sym16, const void* table, const void* data,
-                const void* bounds, const void* lane, const void* row,
-                int64_t nv, const tpm::WindowParams& p, void* rep,
-                void* state) {
+void emit_any(int sym16, const void* table, const void* data,
+              const void* bounds, const void* lane, const void* row,
+              const void* state_gid, int64_t nv, int64_t nc, int32_t flags,
+              const tpm::WindowParams& p, int32_t* buf) {
   if (sym16)
-    window_all<TT, uint16_t>(table, data, bounds, lane, row, nv, p, rep,
-                             state);
+    emit_all<TT, uint16_t>(table, data, bounds, lane, row, state_gid, nv, nc,
+                           flags, p, buf);
   else
-    window_all<TT, uint8_t>(table, data, bounds, lane, row, nv, p, rep,
-                            state);
+    emit_all<TT, uint8_t>(table, data, bounds, lane, row, state_gid, nv, nc,
+                          flags, p, buf);
 }
 
 template <typename TT>
@@ -80,20 +99,30 @@ void dense_any(int sym16, const void* table, const void* data_tm,
 
 extern "C" {
 
-int tpm_window_walk_host(const void* table, int table16, const void* data,
-                         int sym16, const void* bounds, const void* lane,
-                         const void* row, const void* n_valid, int C, int T,
-                         int A, int q, int lmax, int halo, int kw, int WLp,
-                         void* rep, void* state) {
-  const tpm::WindowParams p{C, T, A, q, lmax, halo, kw, WLp};
-  if (!tpm::window_params_ok(p)) return tpm::kWalkBadArgs;
+int tpm_emit_layout_host(int kw, int k_ev, int G, long long* out) {
+  return tpm::emit_layout_out(kw, k_ev, G, out);
+}
+
+int tpm_walk_emit_host(const void* table, int table16, const void* data,
+                       int sym16, const void* bounds, const void* lane,
+                       const void* row, const void* state_gid,
+                       const void* n_valid, const void* n_cand,
+                       const void* base_flags, int C, int T, int A, int q,
+                       int lmax, int halo, int kw, int WLp, int k_ev, int G,
+                       void* buf, long long buf_words) {
+  const tpm::WindowParams p{C, T, A, q, lmax, halo, kw, WLp, k_ev, G};
+  if (!tpm::window_params_ok(p) || buf_words != tpm::emit_layout(p).total)
+    return tpm::kWalkBadArgs;
   const int64_t nv = *static_cast<const int64_t*>(n_valid);
+  const int64_t nc = *static_cast<const int64_t*>(n_cand);
+  const int32_t fl = *static_cast<const int32_t*>(base_flags);
+  auto* out = static_cast<int32_t*>(buf);
   if (table16)
-    window_any<int16_t>(sym16, table, data, bounds, lane, row, nv, p, rep,
-                        state);
+    emit_any<int16_t>(sym16, table, data, bounds, lane, row, state_gid, nv,
+                      nc, fl, p, out);
   else
-    window_any<int32_t>(sym16, table, data, bounds, lane, row, nv, p, rep,
-                        state);
+    emit_any<int32_t>(sym16, table, data, bounds, lane, row, state_gid, nv,
+                      nc, fl, p, out);
   return 0;
 }
 

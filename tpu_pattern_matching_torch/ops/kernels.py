@@ -9,10 +9,11 @@ kernel, bound with ``ctypes``:
   ``_make_probe_kernel`` (strided) and its uint32-packed path
   (strided_packed), all three on one tiled loop.
 - ``dfa_walk.cu`` — the two DFA walks that the reference writes as XLA
-  ``lax.scan`` loops: the windowed candidate walk of device verify
-  (``ops/verify_device.py`` stage 3) and the dense engine's lane walk
-  (``ops/match_xla.py``), which walks each lane in sub-spans
-  (``dense_plan``).
+  ``lax.scan`` loops: the windowed candidate walk of device verify, with
+  the compaction of its reports to events and their group counts in the
+  same launch (``ops/verify_device.py`` stages 3-5), and the dense
+  engine's lane walk (``ops/match_xla.py``), which walks each lane in
+  sub-spans (``dense_plan``).
 - ``proto_probe.cu`` — the prototype probe of the reference's
   ``benchmarks/exp_bloom.py`` (its two Pallas bodies: ``kernel``, one
   tile, and ``big_kernel``, a grid of tiles), launched by
@@ -39,6 +40,7 @@ route it to the plain PyTorch versions).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -184,8 +186,9 @@ def _bind_probe_host(lib) -> None:
 def _bind_walk(lib, stream: bool) -> None:
     suffix = "" if stream else "_host"
     tail = [P] if stream else []
-    fn = getattr(lib, "tpm_window_walk" + suffix)
-    fn.argtypes = [P, I, P, I] + [P] * 4 + [I] * 8 + [P] * 2 + tail
+    fn = getattr(lib, "tpm_walk_emit" + suffix)
+    fn.argtypes = ([P, I, P, I] + [P] * 7 + [I] * 10 + [P, ctypes.c_longlong]
+                   + tail)
     fn.restype = I
     fn = getattr(lib, "tpm_dense_walk" + suffix)
     fn.argtypes = [P, I, P, I] + [P] * 2 + [I] * 8 + [P] * 5 + tail
@@ -193,6 +196,9 @@ def _bind_walk(lib, stream: bool) -> None:
     fn = getattr(lib, "tpm_dense_plan" + suffix)
     fn.argtypes = [I] * (4 if stream else 5) + [P]
     fn.restype = I
+    lib.tpm_emit_layout = getattr(lib, "tpm_emit_layout" + suffix)
+    lib.tpm_emit_layout.argtypes = [I] * 3 + [P]
+    lib.tpm_emit_layout.restype = I
     if stream:
         lib.tpm_walk_error_string.argtypes = [I]
         lib.tpm_walk_error_string.restype = ctypes.c_char_p
@@ -200,7 +206,7 @@ def _bind_walk(lib, stream: bool) -> None:
 
 def _bind_proto(lib, stream: bool) -> None:
     fn = lib.tpm_proto_probe if stream else lib.tpm_proto_probe_host
-    fn.argtypes = [P] * 3 + [I] * 8 + [P] * 2 + ([P] if stream else [])
+    fn.argtypes = [P] * 3 + [I] * 8 + [P] * 2 + ([P] if stream else [I])
     fn.restype = I
     if stream:
         lib.tpm_proto_error_string.argtypes = [I]
@@ -464,10 +470,30 @@ def _check_i32(name, t, shape) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def _window_args(table_flat, data_flat, bounds, lane, row, n_valid, *, C,
-                 T, alphabet_size, q, lmax, halo, steps):
-    """Validates a window-walk launch; returns (args before the outputs,
-    rep, state) with the outputs allocated on the inputs' device."""
+EMIT_LAYOUT_KEYS = ("gcounts", "meta", "total", "blocks", "block_slots")
+
+
+@functools.lru_cache(maxsize=256)
+def emit_layout(lib, kw: int, k_ev: int, num_groups: int) -> dict:
+    """The one buffer of a walk-and-emit launch as ``lib`` (the walk
+    library or its host harness) lays it out (``tpm::emit_layout`` in
+    ``csrc/dfa_walk.cuh``): offsets in int32 words of gcounts and meta
+    (packed ``[3, k_ev]`` first; the kernel's scratch after meta), the
+    total, the kernel's blocks and slots per block
+    (``EMIT_LAYOUT_KEYS``). Do not modify the returned dict."""
+    out = (ctypes.c_longlong * len(EMIT_LAYOUT_KEYS))()
+    if lib.tpm_emit_layout(kw, k_ev, num_groups, out):
+        raise ValueError(f"no walk-and-emit layout for kw={kw}, "
+                         f"k_ev={k_ev}, G={num_groups}")
+    return dict(zip(EMIT_LAYOUT_KEYS, out))
+
+
+def _emit_args(lib, table_flat, state_gid, data_flat, bounds, lane, row,
+               n_exact, n_cand, base_flags, *, C, T, alphabet_size, q, lmax,
+               halo, k_ev, num_groups, steps):
+    """Validates a walk-and-emit launch; returns (its arguments, meta,
+    packed, gcounts), the outputs views of one buffer on the inputs'
+    device, laid out by ``lib``."""
     t16 = _check_table(table_flat, alphabet_size)
     sym16 = _sym16(data_flat, "data_flat")
     if tuple(data_flat.shape) != (C * T,):
@@ -477,51 +503,62 @@ def _window_args(table_flat, data_flat, bounds, lane, row, n_valid, *, C,
     kw = lane.shape[0] if lane.dim() == 1 else -1
     _check_i32("lane", lane, (kw,))
     _check_i32("row", row, (kw,))
-    if n_valid.dtype != torch.int64 or n_valid.numel() != 1:
-        raise ValueError("n_valid must be one int64")
+    _check_i32("state_gid", state_gid, (state_gid.shape[0],))
+    for name, t, dtype in (("n_exact", n_exact, torch.int64),
+                           ("n_cand", n_cand, torch.int64),
+                           ("base_flags", base_flags, torch.int32)):
+        if t.dtype != dtype or t.numel() != 1:
+            raise ValueError(f"{name} must be one {dtype}")
     _same_device(table_flat, table_flat=table_flat, data_flat=data_flat,
-                 bounds=bounds, lane=lane, row=row, n_valid=n_valid)
-    dev = table_flat.device
-    rep = torch.empty((kw, steps), dtype=torch.uint8, device=dev)
-    state = torch.empty((kw, steps), dtype=torch.int32, device=dev)
+                 bounds=bounds, lane=lane, row=row, state_gid=state_gid,
+                 n_exact=n_exact, n_cand=n_cand, base_flags=base_flags)
+    lay = emit_layout(lib, kw, k_ev, num_groups)
+    buf = torch.empty(lay["total"], dtype=torch.int32,
+                      device=table_flat.device)
     args = (table_flat.data_ptr(), t16, data_flat.data_ptr(), sym16,
             bounds.data_ptr(), lane.data_ptr(), row.data_ptr(),
-            n_valid.data_ptr(), C, T, alphabet_size, q, lmax, halo, kw,
-            steps, rep.data_ptr(), state.data_ptr())
-    return args, rep, state
+            state_gid.data_ptr(), n_exact.data_ptr(), n_cand.data_ptr(),
+            base_flags.data_ptr(), C, T, alphabet_size, q, lmax, halo, kw,
+            steps, k_ev, num_groups, buf.data_ptr(), lay["total"])
+    g, m = lay["gcounts"], lay["meta"]
+    return args, buf[m:m + 5], buf[:g].view(3, k_ev), buf[g:m]
 
 
-def launch_window_walk(table_flat, data_flat, bounds, lane, row, n_valid,
-                       **kw):
-    """Launch the windowed candidate walk (``ops.verify_device.window_walk``
-    has the contract) for ``data_flat``'s symbol width; CUDA tensors only.
-    Returns ``(rep [kw, steps] uint8, state [kw, steps] int32)`` without
-    synchronising."""
+def launch_walk_and_emit(table_flat, state_gid, data_flat, bounds, lane, row,
+                         n_exact, n_cand, base_flags, **kw):
+    """Launch stages 3-5 of device verify, the window walk and the
+    compaction of its reports (``ops.verify_device.walk_and_emit`` has the
+    contract), for ``data_flat``'s symbol width: two fills of one buffer
+    and one kernel; CUDA tensors only. Returns ``(meta [5], packed [3,
+    k_ev], gcounts [G])`` int32 without synchronising."""
     if not table_flat.is_cuda:
-        raise ValueError(f"launch_window_walk needs CUDA tensors, got "
+        raise ValueError(f"launch_walk_and_emit needs CUDA tensors, got "
                          f"{table_flat.device}")
-    args, rep, state = _window_args(table_flat, data_flat, bounds, lane, row,
-                                    n_valid, **kw)
-    if rep.shape[0] == 0:
-        return rep, state
     lib = walk_library()
+    args, meta, packed, gcounts = _emit_args(
+        lib, table_flat, state_gid, data_flat, bounds, lane, row, n_exact,
+        n_cand, base_flags, **kw)
     dev = table_flat.device
     with torch.cuda.device(dev):
-        rc = lib.tpm_window_walk(*args, _stream(dev))
-    _raise_on(rc, "window walk", lib.tpm_walk_error_string)
+        rc = lib.tpm_walk_emit(*args, _stream(dev))
+    _raise_on(rc, "walk and emit", lib.tpm_walk_error_string)
     launches["window_walk_u16" if data_flat.dtype == torch.uint16
              else "window_walk"] += 1
-    return rep, state
+    return meta, packed, gcounts
 
 
-def window_walk_on_host(table_flat, data_flat, bounds, lane, row, n_valid,
-                        **kw):
-    """The window walk's per-thread code on the CPU (a test harness)."""
-    args, rep, state = _window_args(table_flat, data_flat, bounds, lane, row,
-                                    n_valid, **kw)
-    if rep.shape[0] and walk_host_library().tpm_window_walk_host(*args):
-        raise RuntimeError("host window walk rejected its arguments")
-    return rep, state
+def walk_and_emit_on_host(table_flat, state_gid, data_flat, bounds, lane,
+                          row, n_exact, n_cand, base_flags, **kw):
+    """The walk-and-emit kernel's per-slot code on the CPU (a test
+    harness): every slot's count, a sequential exclusive scan, every
+    slot's events and the meta."""
+    lib = walk_host_library()
+    args, meta, packed, gcounts = _emit_args(
+        lib, table_flat, state_gid, data_flat, bounds, lane, row, n_exact,
+        n_cand, base_flags, **kw)
+    if lib.tpm_walk_emit_host(*args):
+        raise RuntimeError("host walk and emit rejected its arguments")
+    return meta, packed, gcounts
 
 
 DENSE_PLAN_KEYS = ("subspans", "steps", "threads", "blocks")
@@ -672,13 +709,16 @@ def launch_proto_probe(data, words, mix1, mix2, *, kind, **geom):
     return out
 
 
-def proto_probe_on_host(data, words, mix1, mix2, **geom):
-    """The prototype probe's per-thread code on the CPU (a test harness):
-    CPU tensors that ``benchmarks.exp_bloom.check`` accepted in, the
-    output ``[tiles, rows, C]`` int8 out."""
+def proto_probe_on_host(data, words, mix1, mix2, words_per_item=4,
+                        **geom):
+    """The prototype probe's per-item code on the CPU (a test harness),
+    with items of ``words_per_item`` words of 4 lanes (1 or 4; the kernel
+    picks by the launch's size): CPU tensors that
+    ``benchmarks.exp_bloom.check`` accepted in, the output ``[tiles, rows,
+    C]`` int8 out."""
     args, out, _mixes = _proto_args(data, words, mix1, mix2, **geom)
     lib = _load(("libtpm_proto_host.so", _gxx,
                  lambda lib: _bind_proto(lib, False)))[0]
-    if lib.tpm_proto_probe_host(*args):
+    if lib.tpm_proto_probe_host(*args, words_per_item):
         raise RuntimeError("host proto probe rejected its arguments")
     return out

@@ -10,15 +10,16 @@ runs the reference's ``_verify_kernel`` stage by stage:
      ``(lane, row)`` candidates sorted by (lane, row);
 2.5. exact-gram refinement (``ops/exact_gram.exact_member``) erases the
      bloom false positives and compacts the rest to ``k_walk`` slots;
-3.   ``window_walk``: each candidate's window ``[row-(lmax-q), row+lmax)``
-     is walked from the root with the signed dense table — the CUDA
-     kernel of ``csrc/dfa_walk.cu`` for a CUDA tensor, a plain PyTorch
-     loop over the window's steps for a CPU tensor. Match end ``e`` is
-     reported by the candidate ``i`` with ``r_i + q - 1 <= e < r_next + q
-     - 1`` (the next candidate of the same lane), so each match end has
-     exactly one owner;
-4.   the reports compact to events in (candidate, t) = (lane, end) order;
-5.   ``gcounts`` from the compacted events.
+3-5. ``walk_and_emit``: each candidate's window ``[row-(lmax-q),
+     row+lmax)`` is walked from the root with the signed dense table; match
+     end ``e`` is reported by the candidate ``i`` with ``r_i + q - 1 <= e <
+     r_next + q - 1`` (the next candidate of the same lane), so each match
+     end has exactly one owner; the reports compact to events in
+     (candidate, t) = (lane, end) order, and ``gcounts`` counts the events
+     kept. For a CUDA tensor this is one kernel of ``csrc/dfa_walk.cu``
+     (each slot counts its reports, a chained scan gives it its first
+     event, it walks again and writes them); for a CPU tensor a plain
+     PyTorch loop over the window's steps, then a compaction.
 
 ``DeviceVerifier`` holds the table on the device and buckets the
 capacities from the probe's exact total, retrying the refined-candidate
@@ -28,8 +29,8 @@ each over a range of whole lanes, so every batch stays on the device.
 
 The reference compacts with ``lax.top_k`` because a scatter is serialized
 on XLA:TPU; on the GPU a cumsum plus one scatter into a fixed capacity is
-the natural form. Shapes are fixed by the capacities, so no stage syncs
-with the host. Not ported: ``prefetch_windows`` (a workaround for the
+the natural form of stages 1-2.5, and stages 3-5 are one kernel. Shapes
+are fixed by the capacities, so no stage syncs with the host. Not ported: ``prefetch_windows`` (a workaround for the
 XLA:TPU gather cost) and the ``stages`` bench hook.
 """
 
@@ -125,51 +126,65 @@ def walk_steps(lmax: int, q: int) -> int:
     return -(-(2 * lmax - q) // 4) * 4
 
 
-def window_walk(table_flat, data_flat, bounds, lane, row, n_valid, *, C: int,
-                T: int, alphabet_size: int, q: int, lmax: int, halo: int):
-    """Stage 3: walk every candidate slot's window from the root state.
+def walk_and_emit(table_flat, state_gid, data_flat, bounds, lane, row,
+                  n_exact, n_cand, base_flags, *, C: int, T: int,
+                  alphabet_size: int, q: int, lmax: int, halo: int,
+                  k_ev: int, num_groups: int):
+    """Stages 3-5: walk every candidate slot's window from the root, keep
+    its reports as ``(lane, end, state)`` events in slot order, and count
+    the kept events per group.
 
-    ``table_flat``: ``[S*A]`` int16 or int32 signed table; ``data_flat``:
-    the lane-major batch ``[C*T]`` uint8 or uint16 (symbols past the
-    alphabet read as ``A - 1``); ``bounds``: ``[2, C]`` int32;
-    ``lane``/``row``: ``[kw]`` int32 candidates sorted by (lane, row), the
-    slots at or past ``n_valid`` (one int64) being sentinels. Slot i walks
+    ``table_flat``: ``[S*A]`` int16 or int32 signed table; ``state_gid``:
+    ``[S]`` int32 group of each state (-1: none); ``data_flat``: the
+    lane-major batch ``[C*T]`` uint8 or uint16 (symbols past the alphabet
+    read as ``A - 1``); ``bounds``: ``[2, C]`` int32; ``lane``/``row``:
+    ``[kw]`` int32 candidates sorted by (lane, row), the slots at or past
+    ``n_exact`` (one int64) being sentinels; ``n_cand`` (one int64) and
+    ``base_flags`` (one int32) go into meta. Slot i walks
     ``walk_steps(lmax, q)`` steps from ``w0 = row - (lmax - q)``, reading
     ``data_flat[clip(lane*T + w0 + t)]``; the state advances only inside
     the lane's ``[start_t, end_t)``, and step t reports iff its entry is
     final and ``w0 + t`` lies in ``[max(row + q - 1, halo), min(r_next +
     q - 1, end_t))``, ``r_next`` being the next slot's row when it has the
-    same lane. Returns ``(rep [kw, steps] uint8, state [kw, steps]
-    int32)``, candidate-major.
+    same lane. Returns ``(meta [5], packed [3, k_ev], gcounts [G])`` int32
+    as :func:`verify_candidates` does: events in (slot, t) = (lane, end)
+    order, the first ``k_ev`` kept, fill (-1, -1, 0); ``n_events`` exact
+    past ``k_ev`` (flag bit 1); gcounts over the kept events whose group
+    is >= 0.
 
     A CUDA tensor goes to the kernel of ``csrc/dfa_walk.cu`` (or raises),
-    a CPU tensor to :func:`window_walk_plain`."""
+    a CPU tensor to :func:`walk_and_emit_plain`."""
     kw = dict(C=C, T=T, alphabet_size=alphabet_size, q=q, lmax=lmax,
-              halo=halo, steps=walk_steps(lmax, q))
-    n_valid = n_valid.reshape(1)
+              halo=halo, k_ev=k_ev, num_groups=num_groups,
+              steps=walk_steps(lmax, q))
+    args = (table_flat, state_gid, data_flat, bounds, lane, row,
+            n_exact.reshape(1), n_cand.reshape(1), base_flags.reshape(1))
     if table_flat.is_cuda:
         from tpu_pattern_matching_torch.ops import kernels
 
-        return kernels.launch_window_walk(table_flat, data_flat, bounds,
-                                          lane, row, n_valid, **kw)
+        return kernels.launch_walk_and_emit(*args, **kw)
     if table_flat.device.type != "cpu":
-        raise ValueError(f"no window walk for device {table_flat.device}")
-    return window_walk_plain(table_flat, data_flat, bounds, lane, row,
-                             n_valid, **kw)
+        raise ValueError(f"no walk and emit for device {table_flat.device}")
+    return walk_and_emit_plain(*args, **kw)
 
 
-def window_walk_plain(table_flat, data_flat, bounds, lane, row, n_valid, *,
-                      C: int, T: int, alphabet_size: int, q: int, lmax: int,
-                      halo: int, steps: int):
-    """Plain PyTorch version of the window-walk kernel: one vectorised
-    step over all slots per window step, in int64 (no wraparound). Same
-    contract as :func:`window_walk`; the CPU path, and what the kernel is
-    held to on the card."""
+def walk_and_emit_plain(table_flat, state_gid, data_flat, bounds, lane, row,
+                        n_exact, n_cand, base_flags, *, C: int, T: int,
+                        alphabet_size: int, q: int, lmax: int, halo: int,
+                        k_ev: int, num_groups: int, steps: int):
+    """Plain PyTorch version of the walk-and-emit kernel: the window walk
+    as one vectorised step over all slots per window step, in int64 (no
+    wraparound), into report flags and states ``[kw, steps]``, then their
+    compaction and the group counts. Same contract as
+    :func:`walk_and_emit`; the CPU path, and what the kernel is held to on
+    the card."""
     from .exact_gram import gather_symbols
 
     kw = lane.shape[0]
+    G = num_groups
     dev = lane.device
-    cand_valid = torch.arange(kw, device=dev) < n_valid.reshape(())
+    n_valid = n_exact.reshape(())
+    cand_valid = torch.arange(kw, device=dev) < n_valid
     lane64 = lane.to(torch.int64)
     r = row.to(torch.int64)
     lane_c = lane64.clamp(max=C - 1)
@@ -195,8 +210,32 @@ def window_walk_plain(table_flat, data_flat, bounds, lane, row, n_valid, *,
         state = torch.where(valid, raw.abs(), state)
         reps.append((raw < 0) & valid & (pos >= keep_lo) & (pos < keep_hi))
         states.append(state)
-    return (torch.stack(reps, 1).to(torch.uint8),
-            torch.stack(states, 1).to(torch.int32))
+    rep = torch.stack(reps, 1)
+    st_all = torch.stack(states, 1).to(torch.int32)
+    # events in (candidate, t) order, which is (lane, end) order: the keep
+    # intervals are disjoint and ascend
+    t_of = torch.arange(steps, dtype=torch.int64, device=dev)
+    e_cm = w0[:, None] + t_of[None, :]
+    n_ev, (ev_lane, ev_end, ev_state), ev_over = _compact(
+        rep.reshape(-1),
+        [(lane[:, None].expand(kw, steps).reshape(-1), -1),
+         (e_cm.reshape(-1).clamp(-1, INT32_MAX).to(torch.int32), -1),
+         (st_all.reshape(-1), 0)],
+        k_ev,
+    )
+    # per-group counts from the compacted events
+    reported = n_ev.clamp(max=k_ev)
+    live = torch.arange(k_ev, device=dev) < reported
+    gid = state_gid[ev_state.to(torch.int64).clamp(0, state_gid.shape[0] - 1)]
+    gidx = torch.where(live & (gid >= 0), gid.to(torch.int64), G)
+    gcounts = torch.zeros(G + 1, dtype=torch.int32, device=dev).index_add_(
+        0, gidx, live.to(torch.int32))[:G]
+    flags = base_flags.reshape(()) | (ev_over.to(torch.int32) << 1)
+    meta = torch.stack([
+        n_ev, reported, n_cand.reshape(()).clamp(max=INT32_MAX),
+        flags.to(torch.int64), n_valid.clamp(max=INT32_MAX),
+    ]).to(torch.int32)
+    return meta, torch.stack([ev_lane, ev_end, ev_state]), gcounts
 
 
 def verify_candidates(table_flat, state_gid, data, bounds, bits, dx=None, *,
@@ -217,7 +256,6 @@ def verify_candidates(table_flat, state_gid, data, bounds, bits, dx=None, *,
     order, fill (-1, -1, 0)."""
     C, T = data.shape
     Cb = bits.shape[1]
-    G = num_groups
     dev = bits.device
     # ---- stages 1+2: bitmap -> compacted (lane, row) candidates
     n_cand, lane, row, cand_over = bitmap_to_candidates(bits, stride, k_cand)
@@ -234,40 +272,16 @@ def verify_candidates(table_flat, state_gid, data, bounds, bits, dx=None, *,
         n_exact, (lane, row), refine_over = _compact(
             keep, [(lane, Cb), (row, INT32_MAX)], kw)
     else:
-        kw = k_cand
         n_exact = n_cand
         refine_over = torch.zeros((), dtype=torch.bool, device=dev)
     base_flags = (cand_over.to(torch.int32)
                   | (refine_over.to(torch.int32) << 2))
-    # ---- stage 3: windowed walk (the kernel)
-    rep, st = window_walk(table_flat, data_flat, bounds, lane, row, n_exact,
-                          C=C, T=T, alphabet_size=alphabet_size, q=q,
-                          lmax=lmax, halo=halo)
-    steps = rep.shape[1]
-    # ---- stage 4: event compaction in (candidate, t) order, which is
-    # (lane, end) order: the keep intervals are disjoint and ascend
-    t_of = torch.arange(steps, dtype=torch.int64, device=dev)
-    e_cm = (row.to(torch.int64) - (lmax - q))[:, None] + t_of[None, :]
-    n_ev, (ev_lane, ev_end, ev_state), ev_over = _compact(
-        rep.reshape(-1) != 0,
-        [(lane[:, None].expand(kw, steps).reshape(-1), -1),
-         (e_cm.reshape(-1).clamp(-1, INT32_MAX).to(torch.int32), -1),
-         (st.reshape(-1), 0)],
-        k_ev,
-    )
-    # ---- stage 5: per-group counts from the compacted events
-    reported = n_ev.clamp(max=k_ev)
-    live = torch.arange(k_ev, device=dev) < reported
-    gid = state_gid[ev_state.to(torch.int64).clamp(0, state_gid.shape[0] - 1)]
-    gidx = torch.where(live & (gid >= 0), gid.to(torch.int64), G)
-    gcounts = torch.zeros(G + 1, dtype=torch.int32, device=dev).index_add_(
-        0, gidx, live.to(torch.int32))[:G]
-    flags = base_flags | (ev_over.to(torch.int32) << 1)
-    meta = torch.stack([
-        n_ev, reported, n_cand.clamp(max=INT32_MAX), flags.to(torch.int64),
-        n_exact.clamp(max=INT32_MAX),
-    ]).to(torch.int32)
-    return meta, torch.stack([ev_lane, ev_end, ev_state]), gcounts
+    # ---- stages 3-5: windowed walk, event compaction, group counts (one
+    # kernel on the card)
+    return walk_and_emit(table_flat, state_gid, data_flat, bounds, lane, row,
+                         n_exact, n_cand, base_flags, C=C, T=T,
+                         alphabet_size=alphabet_size, q=q, lmax=lmax,
+                         halo=halo, k_ev=k_ev, num_groups=num_groups)
 
 
 def lane_passes(bits, cap: int) -> list[tuple[int, int, int]]:

@@ -13,7 +13,7 @@ Three single-device pipelines, as in the reference:
   exact events.
 - ``engine="bloom"``, ``verify="device"``: the probe's candidates are
   refined, walked and compacted into exact events on the device
-  (``ops/verify_device.py``, the window-walk kernel); a batch past
+  (``ops/verify_device.py``, the walk-and-emit kernel); a batch past
   ``MAX_DEVICE_CAND`` candidates is verified there in several passes.
 - ``engine="dense"``: every lane walks the whole DFA on the device
   (``ops/match_xla.py``, the dense-walk kernel) and the per-lane result
