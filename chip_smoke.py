@@ -71,6 +71,22 @@ Phases (any failure exits non-zero at once):
 10. main inputs — the sampled and strided probes, at both widths, on the
               main paths' own inputs kept from phases 3 and 7 (the fullest
               batch of each), against the plain probe, timed, with bounds;
+10b. pshard — pattern shards on one device (``parallel/pshard.py``): the
+              bench workload in 4 shard filters through ``MatchSession(
+              pat_shards=4)`` with host and with device verify (events
+              equal the oracle's; the probe kernels' launches move by 4 a
+              batch), the OR-into-bitmap launches on the batch of the
+              largest probe total against ``sharded_probe_bits_plain``,
+              bit for bit, timed beside their bounds and one shard's
+              launch; the deployment point of the reference's
+              ``benchmarks/bench_pshard.py`` (300,000 random 12-byte
+              patterns, 8 shards, probe only) the same way; the ushort
+              CLI with ``--pat-shards 2`` and the byte CLI with
+              ``--pat-shards 4 --save-bloom``, then ``--load-bloom``, each
+              against the oracle; ``entry.entry()`` against the plain
+              probe; and about 10 trials of the port's fuzz campaign
+              (``tools.fuzz_campaign``) on the card, bounded to about
+              20 s;
 11. proto   — the prototype probes of the reference's
               ``benchmarks/exp_bloom.py`` (K4, one tile [286, 512]; K5, the
               grid [58368, 1024] of 128 tiles with their pad rows), each
@@ -84,8 +100,10 @@ Phases (any failure exits non-zero at once):
 12. trace   — torch.profiler traces: each kernel's device time per launch
               (the summary's ``ms``) beside its bound and share, also on
               the main paths' inputs (and for the walk and emit, the
-              device time of its call: two fills and the kernel), and the
-              device time of the packed A/B's prep + probe per call;
+              device time of its call: two fills and the kernel), the
+              sharded probes' device time per batch (S launches) beside
+              their bounds and one shard's launch, and the device time of
+              the packed A/B's prep + probe per call;
 13. dispatch — per phase-5 session, on its batch of the largest probe
               total: the median host ms to enqueue one
               ``verify_candidates`` dispatch (in all and in stages 3-5)
@@ -96,9 +114,9 @@ Phases (any failure exits non-zero at once):
               session thins the traces after it);
 14. no jax  — the port never imported jax nor the JAX package.
 
-Each of phases 3-9 and 11 sets every launch count to 0 before its path
-and reads them after it; each fails unless the kernels of its path were
-launched. Each of phases 7-9 and 11 prints its wall time.
+Each of phases 3-9, 10b and 11 sets every launch count to 0 before its
+path and reads them after it; each fails unless the kernels of its path
+were launched. Each of phases 7-9, 10b and 11 prints its wall time.
 The last lines are the card's name and power limit, a JSON line with the
 per-kernel summary (every kernel at each symbol width, with its bound,
 share and, for the probes, its numbers on the main path's inputs), and
@@ -149,6 +167,12 @@ SIGS = ("40,32,287,32,106,196; 6; File scanner (metasploit file scanning)\n"
         "40,32,287,32,106,186,32; 7; Directory scanner\n"
         "5,5,5; 3; triple five\n")  # tests/test_ushort.py's fixture
 CLI_FILES = 16  # the byte CLI phase splits the 64 MiB stream into 16 files
+PSHARD_BENCH = 4  # pattern shards of the bench workload (10k x 12 B)
+# benchmarks/bench_pshard.py's deployment point (:73-85): 300,000 random
+# 12-byte patterns (RandomState 42) in 8 shards, objective "probe", probed
+# on a random batch of 4096 lanes x (halo + 4096) (RandomState 7)
+PSHARD_DEPLOY = (300_000, 8)
+FUZZ_TRIALS, FUZZ_SECONDS = 10, 20.0  # the fuzz campaign's trials on the card
 CUDA_LIBRARIES = ("libtpm_probe_cuda.so", "libtpm_walk_cuda.so",
                   "libtpm_proto_cuda.so")
 PROBE_SRC = "tpu_pattern_matching_torch/csrc/bloom_probe.cu"
@@ -219,6 +243,28 @@ def probe_bound(torch, bloom, data_tm, bp, words, cfg) -> dict:
                 bank_probes=probes)
 
 
+def sharded_bound(torch, bloom, data_tm, bp, words, cfg) -> tuple:
+    """Bounds of the S-shard probe of one batch (``words [S, k, v, 128]``):
+    (the function's: the batch, its bounds and the union bitmap once,
+    every shard's words once, the selection and gram hashes once (the
+    shards share ``cfg`` and its mixes), each shard's bank probes; the S
+    launches': the sum of ``probe_bound`` over the shards plus the S - 1
+    reads of the bitmap that the OR makes; shard 0's launch alone)."""
+    per = [probe_bound(torch, bloom, data_tm, bp, words[s], cfg)
+           for s in range(words.shape[0])]
+    S = len(per)
+    T = data_tm.shape[0] * (4 if data_tm.dtype == torch.int32 else 1)
+    bitmap = T // (32 * cfg.stride) * bp.shape[1] * 4
+    fn = bound_of(per[0]["bytes"] + (S - 1) * words[0].numel() * 4,
+                  per[0]["ops"] + BANK_OPS * sum(p["bank_probes"]
+                                                 for p in per[1:]))
+    fn.update(tested=per[0]["tested"],
+              bank_probes=sum(p["bank_probes"] for p in per))
+    launches = bound_of(sum(p["bytes"] for p in per) + (S - 1) * bitmap,
+                        sum(p["ops"] for p in per))
+    return fn, launches, per[0]
+
+
 def walk_bound(steps: int, sym: int, out_bytes: int) -> dict:
     """The bound of a DFA walk of ``steps`` steps: each symbol read once,
     the outputs written once, WALK_OPS per step; the table's entries are
@@ -262,11 +308,12 @@ def bound_text(b: dict) -> str:
             f"B, {b['ops']} int32 ops)")
 
 
-def phase_trace(torch, times, main, ab_fns, card_line: str) -> None:
+def phase_trace(torch, times, main, shards, ab_fns, card_line: str) -> None:
     """Device times from torch.profiler traces: each kernel's per launch
-    (also on the main path's inputs, ``main``), and the packed A/B's per
-    call (every kernel of prep + probe). Runs
-    last, so that the profiler's set-up and hooks cannot touch the
+    (also on the main path's inputs, ``main``), the sharded probes' per
+    batch (``shards``: S launches) and one shard's launch on the same
+    batch, and the packed A/B's per call (every kernel of prep + probe).
+    Runs last, so that the profiler's set-up and hooks cannot touch the
     host-bound times taken before it."""
     for key, t in times.items():
         fn = t.pop("fn")
@@ -287,6 +334,21 @@ def phase_trace(torch, times, main, ab_fns, card_line: str) -> None:
               f"{t['ms']:.4f} ms device time per launch ({count} launches "
               f"traced of 100 calls); {bound_text(t)}, share "
               f"{t['bound_ms'] / t['ms']:.4f} ({card_line})", flush=True)
+    for key, t in shards.items():
+        kernel = KERNELS[t["mode"]][1]
+        t["launch_ms"], count = trace_ms(t.pop("fn"), kernel)
+        t["ms"] = t["launch_ms"] * t["shards"]
+        t["one_shard_ms"], _ = trace_ms(t.pop("one_fn"), kernel)
+        print(f"[trace] {key} ({t['label']}): {t['ms']:.4f} ms device time "
+              f"per batch, {t['shards']} launches of {t['launch_ms']:.4f} ms "
+              f"({count} launches traced of 100 batches); "
+              f"{bound_text(t)}, share {t['bound_ms'] / t['ms']:.4f}; the "
+              f"{t['shards']} launches' bound {t['launches_bound_ms']:.6f} "
+              f"ms, share {t['launches_bound_ms'] / t['ms']:.4f}; one "
+              f"shard's launch on the same batch {t['one_shard_ms']:.4f} ms "
+              f"(bound {t['one_shard_bound_ms']:.6f} ms); sharded / one "
+              f"shard {t['ms'] / t['one_shard_ms']:.4f} ({card_line})",
+              flush=True)
     ab = [trace_ms(ab_fns[packed])[0] for packed in AB]
     print(f"[trace] packed A/B, device time of prep + probe per call: byte "
           f"path {ab[0]:.4f}, {ab[3]:.4f} ms, packed path {ab[1]:.4f}, "
@@ -1598,6 +1660,15 @@ def phase_main_probes(torch, bloom, kernels, inputs, card_line) -> dict:
     return main
 
 
+def cli_oracle(w) -> tuple[int, int]:
+    """The oracle's (distinct match ends, events) of the bench workload
+    over the byte CLI's 16 files: the events whose occurrence lies inside
+    one file (12-byte patterns)."""
+    size = len(w["data"]) // CLI_FILES
+    inside = [(e, p) for e, p in w["want"] if (e - 11) // size == e // size]
+    return len({e for e, _ in inside}), len(inside)
+
+
 def phase_cli(torch, kernels, workloads, tmp, card_line) -> dict:
     """The byte CLI on the bench workload split over 16 files (totals
     against the oracle) and a -v -t run of the 3-pattern set (events
@@ -1616,17 +1687,15 @@ def phase_cli(torch, kernels, workloads, tmp, card_line) -> dict:
         tmp, "bench.bloom.npz")
     w["table"].save(dfa)
     w["bloom_table"].save(bft)
-    # oracle events whose occurrence lies inside one file (12-byte patterns)
-    inside = [(e, p) for e, p in w["want"] if (e - 11) // size == e // size]
-    want_total = len({e for e, _ in inside})
+    want_total, n_inside = cli_oracle(w)
     reset(kernels)
     _, st = run_cli(cli_main, ["-f", d, "--load-dfa", dfa, "--load-bloom",
                                bft, "-B", str(CHUNK_LEN), "-G",
                                str(BATCH_LANES)])
     if (st["matches_total"], st["matches_reported"]) != (want_total,
-                                                         len(inside)):
+                                                         n_inside):
         fail(f"[cli] bench workload: matches {st['matches_total']}/"
-             f"{st['matches_reported']}, oracle {want_total}/{len(inside)}")
+             f"{st['matches_reported']}, oracle {want_total}/{n_inside}")
     print(f"[cli] bench workload over {CLI_FILES} files ({len(w['data'])} B):"
           f" matches_total {st['matches_total']} == oracle, {st['rounds']} "
           f"batches; {st['throughput_mbps']:.6g} Mbps by the CLI's STATS "
@@ -1718,6 +1787,217 @@ def phase_sentiment(torch, kernels, tmp, card_line) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def keep_largest_union(bloom, store: dict):
+    """Keep the inputs and total of the sharded probe of the batch with the
+    largest union total. It syncs at every batch, so it wraps only
+    untimed runs made after the timed ones."""
+    probe = bloom.sharded_probe_bits
+
+    def keep(data_tm, bounds, words, cfg):
+        bits, total = probe(data_tm, bounds, words, cfg)
+        n = int(total[0])
+        if n > store.get("total", -1):
+            store.update(total=n, args=(data_tm, bounds, words, cfg))
+        return bits, total
+
+    bloom.sharded_probe_bits = keep
+    try:
+        yield
+    finally:
+        bloom.sharded_probe_bits = probe
+
+
+def check_union(torch, bloom, kernels, args, label, launches,
+                card_line) -> dict:
+    """The S launches into one bitmap against ``sharded_probe_bits_plain``
+    on one batch, bit for bit, timed beside the bounds and one shard's
+    launch; returns the summary's record (``fn`` and ``one_fn`` kept for
+    the trace phase)."""
+    data_tm, bp, words, cfg = args
+    S = words.shape[0]
+    union = functools.partial(bloom.or_shards, kernels.launch_probe, data_tm,
+                              bp, words, cfg)
+    plain = functools.partial(bloom.sharded_probe_bits_plain, data_tm, bp,
+                              words, cfg)
+    kb, kt = union()
+    torch.cuda.synchronize()
+    pb, pt = plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, (kb, kt), (pb, pt))
+    if err or int(kt[0]) != int(pt[0]):
+        fail(f"[pshard] {label}: the {S} OR-into-bitmap launches differ from "
+             f"sharded_probe_bits_plain (max_abs_err {err}, totals "
+             f"{int(kt[0])} vs {int(pt[0])})")
+    fn_bound, launches_bound, one_bound = sharded_bound(
+        torch, bloom, data_tm, bp, words, cfg)
+    t, text = timed(torch, union, plain, 50, 2, err, card_line, fn_bound)
+    one = functools.partial(kernels.launch_probe, data_tm, bp, words[0], cfg)
+    one_total = int(one()[1][0])
+    one_ms = event_ms(one, 50)
+    mode = kernels.probe_mode(data_tm, cfg)
+    t.update(one_fn=one, mode=mode, shards=S, label=label,
+             launches=launches, config=cfg_name(cfg),
+             shape=list(data_tm.shape),
+             launches_bound_ms=launches_bound["bound_ms"],
+             one_shard_bound_ms=one_bound["bound_ms"])
+    print(f"[pshard] {label}: {S} x {mode} {cfg_name(cfg)} {data_tm.dtype} "
+          f"{list(data_tm.shape)}, union bits and total equal "
+          f"sharded_probe_bits_plain, tolerance 0 ({int(kt[0])} survivors; "
+          f"shard 0 alone {one_total}); "
+          f"{plan_text(kernels.probe_plan(data_tm, cfg))}{text}; the {S} "
+          f"launches' bound {launches_bound['bound_ms']:.6f} ms; one "
+          f"shard's launch {one_ms:.4f} ms by CUDA events (bound "
+          f"{one_bound['bound_ms']:.6f} ms)", flush=True)
+    return t
+
+
+def phase_pshard(torch, bloom, kernels, MatchSession, workloads, ush, tmp,
+                 card_line) -> dict:
+    """Pattern shards on one device: the bench point's sessions and union
+    check, the deployment point's union check, both CLIs, ``entry`` and
+    the fuzz campaign on the card. Returns the sharded probes' records,
+    keyed for the summary."""
+    from tpu_pattern_matching_torch import entry
+    from tpu_pattern_matching_torch.cli import main as cli_main
+    from tpu_pattern_matching_torch.parallel.pshard import ShardedBloom
+    from tpu_pattern_matching_torch.tools import fuzz_campaign
+
+    t_phase = time.perf_counter()
+    out = {}
+    w = workloads[0]
+    t0 = time.perf_counter()
+    sb = ShardedBloom.from_table(w["table"], PSHARD_BENCH)
+    build_s = time.perf_counter() - t0
+    mode = "sampled" if sb.cfg.sampled else "strided"
+    print(f"[pshard] bench workload in {PSHARD_BENCH} shards: "
+          f"{cfg_name(sb.cfg)}, {sb.n_grams} grams, fp_est "
+          f"{[round(f, 6) for f in sb.fp_est]}, build {build_s:.2f} s",
+          flush=True)
+    reset(kernels)
+    sessions = []
+    for verify in ("host", "device"):
+        sess = session(MatchSession, w, bloom_table=sb, verify=verify)
+        before = kernels.launches[mode]
+        rate = timed_find(torch, sess, w, f"pshard {verify}")
+        batches = -(-len(w["data"]) // (BATCH_LANES * CHUNK_LEN))
+        print(f"[pshard] MatchSession(pat_shards={sess.pat_shards}, "
+              f"verify={verify!r}): find over {len(w['data'])} B -> "
+              f"{len(w['want'])} events == native oracle; {mode} launches "
+              f"{kernels.launches[mode] - before} for the warm-up and about "
+              f"{batches} batches; refine overflows {sess.refine_overflows};"
+              f" {rate:.6g} B/s end to end (smoke number, {card_line})",
+              flush=True)
+        sessions.append(sess)
+    needed = (mode, "window_walk")
+    launches = read_launches(kernels, "pshard", needed)
+    largest = {}
+    with keep_largest_union(bloom, largest):
+        sessions[0].find(w["data"])
+    out[f"{mode}_pshard{PSHARD_BENCH}"] = check_union(
+        torch, bloom, kernels, largest["args"],
+        "the bench workload's batch of the largest union total",
+        launches[mode], card_line)
+    # the deployment point of benchmarks/bench_pshard.py, probe only
+    n_pats, S = PSHARD_DEPLOY
+    rng = np.random.RandomState(42)
+    pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
+            for _ in range(n_pats)]
+    t0 = time.perf_counter()
+    big = ShardedBloom.build(pats, S, objective="probe")
+    build_s = time.perf_counter() - t0
+    del pats
+    halo = 16  # pad_halo(12 - 1, 4096)
+    B = CHUNK_LEN + (-(halo + CHUNK_LEN)) % big.cfg.tile_rows
+    drng = np.random.RandomState(7)
+    dev = torch.device(DEVICE)
+    data = torch.from_numpy(drng.randint(
+        0, 256, size=(BATCH_LANES, halo + B)).astype(np.uint8)).to(dev)
+    bounds = torch.from_numpy(np.stack([
+        np.full(BATCH_LANES, halo, np.int32),
+        np.full(BATCH_LANES, halo + B, np.int32)])).to(dev)
+    dbig = big.put(dev)
+    deploy = {}
+    reset(kernels)
+    with keep_largest_union(bloom, deploy):
+        h = dbig.hits(data, bounds)
+    big_mode = "sampled" if big.cfg.sampled else "strided"
+    moved = read_launches(kernels, "pshard deploy", (big_mode,))[big_mode]
+    if moved != S:
+        fail(f"[pshard] the deployment point made {moved} launches, not {S}")
+    print(f"[pshard] deployment point: {n_pats} random 12-byte patterns in "
+          f"{S} shards (objective probe): {cfg_name(big.cfg)}, fp_est per "
+          f"shard {big.fp_est[0]:.6g}, build {build_s:.2f} s on the card's "
+          f"host; union total {int(h.meta[0])} on [{BATCH_LANES}, "
+          f"{halo + B}]", flush=True)
+    out[f"{big_mode}_pshard{S}"] = check_union(
+        torch, bloom, kernels, deploy["args"],
+        f"{n_pats // 1000}k patterns, a random batch", moved, card_line)
+    # the ushort CLI with --pat-shards 2
+    t0 = time.perf_counter()
+    base = ["-f", ush["flow_dir"], "-p", ush["sig_path"], "--ushort", "-v",
+            "-B", str(2 * U16_TOKENS), "-G", str(U16_LANES)]
+    before = dict(kernels.launches)
+    got, st = run_cli(cli_main, base + ["--pat-shards", "2"], USHORT_LINE)
+    check_events("pshard ushort", got, ush["want"])
+    moved = {k: v - before[k] for k, v in kernels.launches.items()
+             if v != before[k]}
+    print(f"[pshard] ushort CLI --pat-shards 2: {len(got)} events == native "
+          f"oracle, {st['rounds']} batches, launches {moved}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # the byte CLI: --pat-shards 4 --save-bloom, then --load-bloom
+    d = os.path.join(tmp, "bytes")
+    dfa, dump = (os.path.join(tmp, "bench.dfa.npz"),
+                 os.path.join(tmp, "pshard.bloom.npz"))
+    want_total, n_inside = cli_oracle(w)
+    for argv in (["--load-dfa", dfa, "--pat-shards", str(PSHARD_BENCH),
+                  "--save-bloom", dump],
+                 ["--load-dfa", dfa, "--load-bloom", dump]):
+        t0 = time.perf_counter()
+        _, st = run_cli(cli_main, ["-f", d, "-B", str(CHUNK_LEN), "-G",
+                                   str(BATCH_LANES)] + argv)
+        if (st["matches_total"], st["matches_reported"]) != (want_total,
+                                                             n_inside):
+            fail(f"[pshard] byte CLI {argv}: matches {st['matches_total']}/"
+                 f"{st['matches_reported']}, oracle {want_total}/{n_inside}")
+        print(f"[pshard] byte CLI {' '.join(os.path.basename(a) for a in argv)}"
+              f": matches_total {st['matches_total']} == oracle, "
+              f"{st['rounds']} batches, {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    with np.load(dump) as z:
+        if z["pshard_words"].shape[0] != PSHARD_BENCH:
+            fail(f"[pshard] the dump holds {z['pshard_words'].shape[0]} "
+                 f"shards")
+    # entry.entry() on the card against the plain probe
+    fn, args = entry.entry(DEVICE)
+    total, bits = fn(*args)
+    torch.cuda.synchronize()
+    p_total, p_bits = fn(*(a.cpu() for a in args))
+    if not torch.equal(bits.cpu(), p_bits) or int(total[0]) != int(
+            p_total[0]):
+        fail("[pshard] entry(): the kernel's forward differs from the plain "
+             "version's")
+    print(f"[pshard] entry.entry(): forward {tuple(bits.shape)} bits and "
+          f"total {int(total[0])} equal the plain version's on the CPU",
+          flush=True)
+    # the fuzz campaign on the card, bounded in wall time
+    t0 = time.perf_counter()
+    arms: dict = {}
+    trials = 0
+    while trials < FUZZ_TRIALS and time.perf_counter() - t0 < FUZZ_SECONDS:
+        for a in fuzz_campaign.run_trial(trials, 0, DEVICE)["arms"]:
+            arms[a] = arms.get(a, 0) + 1
+        trials += 1
+    print(f"[pshard] fuzz campaign on the card: {trials} trials (seed 0) == "
+          f"oracle in {time.perf_counter() - t0:.2f} s; arms {arms}",
+          flush=True)
+    if "pat_shards" not in arms:
+        fail(f"[pshard] no fuzz trial ran the pat_shards arm ({arms})")
+    print(f"[pshard] phase wall time {time.perf_counter() - t_phase:.2f} s "
+          f"({card_line})", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1764,12 +2044,14 @@ def main() -> None:
                                        card_line)
         phase_cli(torch, kernels, workloads, tmp, card_line)
         phase_sentiment(torch, kernels, tmp, card_line)
+        shards = phase_pshard(torch, bloom, kernels, MatchSession, workloads,
+                              ush, tmp, card_line)
     # phase 11, last before the trace (why: the docstring)
     proto_times, proto_launches = phase_proto(torch, kernels, card_line)
     times.update(proto_times)
     for key in ("proto_tile", "proto_grid"):
         launches[key] = proto_launches[key]
-    phase_trace(torch, times, main_times, ab_fns, card_line)
+    phase_trace(torch, times, main_times, shards, ab_fns, card_line)
     phase_dispatch(torch, dispatch_sessions, card_line)
     imported = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "tpu_pattern_matching")]
@@ -1795,6 +2077,21 @@ def main() -> None:
                  "label", "config", "shape", "max_abs_err", "ms", "plain_ms",
                  "bound_ms", "bound_by")}} if key in main_times else {})}
         for key, (name, _fn, src, rep) in KERNELS.items()
+    ] + [
+        # the pattern-shard sequence: S launches of one probe kernel into
+        # one bitmap per batch; ms, plain_ms and the bounds per batch
+        {"name": f"bloom_probe_{key}", "route": "cuda", "source": PROBE_SRC,
+         "replaces": "tpu_pattern_matching/parallel/pshard.py:277",
+         "launches": t["launches"],
+         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+         "bound_by": t["bound_by"], "share": t["bound_ms"] / t["ms"],
+         "library_ms": None, "shards": t["shards"],
+         "launch_ms": t["launch_ms"],
+         "launches_bound_ms": t["launches_bound_ms"],
+         "one_shard_ms": t["one_shard_ms"], "config": t["config"],
+         "shape": t["shape"]}
+        for key, t in shards.items()
     ]}
     print(card_line)
     print(json.dumps(summary))

@@ -6,7 +6,9 @@ same files, on the CPU (``--device cpu``).
   and ``--json-stats`` equal the reference's line for line (timing fields
   aside) in byte mode (binary, ``-t``, ``-x``, ``-i``, ``-m``, multi-file
   ``-w 2``, directory input, ``--sort-global``, saved and loaded DFA and
-  bloom dumps) and in ``--ushort`` mode on the 3-signature fixture.
+  bloom dumps) and in ``--ushort`` mode on the 3-signature fixture, and
+  with ``--pat-shards`` in both modes; a sharded ``--save-bloom`` dump of
+  either package loads with ``--load-bloom`` in the other.
 - ``check_args`` and the other early exits print the reference's messages
   and exit 2; the not-ported multi-device flags exit 2 naming their ROADMAP
   item; ``--device cuda`` without a GPU exits 2.
@@ -189,25 +191,84 @@ def test_unaligned_sizes_warn_like_reference(corpus, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2"], "item 11"),
-    (["--pat-shards", "2"], "item 10"),
+    # --pat-shards (item 10) is ported: the run equals the reference's
+    pytest.param(["--pat-shards", "2"], None, id="flags1-item 10"),
     (["--num-processes", "2"], "item 11"),
 ])
 def test_not_ported_flags_exit_2(flags, item, corpus, capsys, monkeypatch):
     monkeypatch.chdir(corpus)
+    argv = ["-f", "all.txt", "-p", "p.txt", "-B", "64", "-G", "16", "-v",
+            "-w", "1"]
+    if item is None:
+        ref, port = both(argv + flags, capsys)
+        assert port == ref and any(ln.startswith("Pattern ") for ln in port)
+        return
     with pytest.raises(SystemExit) as e:
-        port_main(["-f", "all.txt", "-p", "p.txt", "--device", "cpu"] + flags)
+        port_main(argv + ["--device", "cpu"] + flags)
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and item in err
 
 
 def test_sharded_bloom_dump_exits_2(corpus, capsys, monkeypatch):
+    # a pattern-sharded dump loads now (it exited 2 before pattern shards
+    # were ported): the reference's dump gives the reference's lines
+    from tpu_pattern_matching.core.dfa import compile_patterns
+    from tpu_pattern_matching.parallel.pshard import ShardedBloom
+
     monkeypatch.chdir(corpus)
-    np.savez(corpus / "sharded.npz", pshard_words=np.zeros(4, np.int32))
-    with pytest.raises(SystemExit) as e:
-        port_main(["-f", "all.txt", "-p", "p.txt", "--device", "cpu",
-                   "--load-bloom", "sharded.npz"])
-    assert e.value.code == 2 and "item 10" in capsys.readouterr().err
+    pats = [p for p in (corpus / "p.txt").read_bytes().split(b"\n") if p]
+    ShardedBloom.from_table(compile_patterns(pats), 2).save("sharded.npz")
+    ref, port = both(["-f", "all.txt", "-p", "p.txt", "-B", "64", "-G", "16",
+                      "-v", "-w", "1", "--engine", "bloom", "--load-bloom",
+                      "sharded.npz"], capsys)
+    assert port == ref and any(ln.startswith("Pattern ") for ln in port)
+
+
+@pytest.mark.parametrize("mode", ["byte", "ushort"])
+def test_pat_shards_equal_reference(mode, corpus, capsys, monkeypatch):
+    # --pat-shards 3, byte mode and --ushort: line for line
+    monkeypatch.chdir(corpus)
+    if mode == "byte":
+        argv = ["-f", "all.txt", "-p", "p.txt", "-t"]
+    else:
+        (corpus / "sigs").write_text(SIGS)
+        (corpus / "flows").mkdir()
+        (corpus / "flows" / "10.0.0.1_444_10.0.0.2_443_tcp").write_text(
+            "7,40,32,287,32,106,196,9,5,5,5")
+        (corpus / "flows" / "10.0.0.3_80_10.0.0.4_443_tcp").write_text(
+            "5,5,5,5, 40,32,287,32,106,186,32")
+        argv = ["-f", "flows", "-p", "sigs", "--ushort"]
+    ref, port = both(argv + ["-B", "64", "-G", "16", "-v", "-w", "1",
+                             "--json-stats", "--pat-shards", "3"], capsys)
+    assert port == ref
+    assert sum(ln.startswith("Pattern ") for ln in port) >= 5
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_sharded_save_bloom_loads_in_the_other_cli(writer, corpus, capsys,
+                                                   monkeypatch):
+    # --pat-shards 3 --save-bloom in one package, --load-bloom in the other
+    monkeypatch.chdir(corpus)
+    # the reference's "auto" is dense on the CPU: name the engine
+    base = ["-f", "all.txt", "-B", "64", "-G", "16", "-v", "-w", "1",
+            "--json-stats", "--engine", "bloom"]
+    save = base + ["-p", "p.txt", "--pat-shards", "3", "--save-dfa", "t.npz",
+                   "--save-bloom", "s.npz"]
+    load = base + ["--load-dfa", "t.npz", "--load-bloom", "s.npz"]
+    if writer == "port":
+        assert port_main(save + ["--device", "cpu"]) == 0
+        built = stable(capsys.readouterr().out)
+        assert ref_main(load) == 0
+    else:
+        assert ref_main(save) == 0
+        built = stable(capsys.readouterr().out)
+        assert port_main(load + ["--device", "cpu"]) == 0
+    loaded = stable(capsys.readouterr().out)
+    with np.load(corpus / "s.npz") as z:
+        assert z["pshard_words"].shape[0] == 3
+    assert loaded == built
+    assert sum(ln.startswith("Pattern ") for ln in loaded) >= 3
 
 
 def test_cuda_without_a_gpu_exits_2(corpus, capsys, monkeypatch):

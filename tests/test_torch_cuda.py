@@ -79,6 +79,63 @@ def test_kernel_equals_plain(cuda, spec):
     assert int(k_total[0]) == int(p_total[0]) > 0
 
 
+@pytest.mark.parametrize("spec", [("sampled", 4, 9, 6, 8, 4),
+                                  ("strided", 4, 4, 6, 16, 3),
+                                  ("sampled", 5, 30, 6, 256, 2)])
+def test_or_into_bitmap_kernel_equals_sharded_plain(cuda, spec):
+    # S launches of the probe kernel into one bitmap (the pattern-shard
+    # sequence): the union and its popcount equal the plain version's
+    cfg = make_cfg(*spec[:5], seed=6)
+    S = spec[5]
+    rng = np.random.RandomState(7)
+    C, T = 300, 1000
+    data = torch.from_numpy(
+        rng.randint(0, 256, size=(C, T)).astype(np.uint8)).to(cuda)
+    start = rng.randint(0, 20, size=C).astype(np.int32)
+    end = rng.randint(T - 50, T + 1, size=C).astype(np.int32)
+    end[::11] = start[::11]
+    words = torch.from_numpy(
+        (rng.randint(-(2**31), 2**31, size=(S, cfg.kbanks, cfg.v, 128))
+         & rng.randint(-(2**31), 2**31, size=(S, cfg.kbanks, cfg.v, 128)))
+        .astype(np.int32)).to(cuda)
+    data_tm, Cp = bloom.prep_time_major(data, cfg)
+    bp = bloom.pad_bounds(torch.from_numpy(np.stack([start, end])).to(cuda),
+                          Cp)
+    before = kernels.launches[spec[0]]
+    k_bits, k_total = bloom.sharded_probe_bits(data_tm, bp, words, cfg)
+    torch.cuda.synchronize()
+    assert kernels.launches[spec[0]] == before + S
+    p_bits, p_total = bloom.sharded_probe_bits_plain(data_tm, bp, words, cfg)
+    assert torch.equal(k_bits, p_bits)
+    assert int(k_total[0]) == int(p_total[0]) > 0
+    # a count-less launch writes its bitmap and leaves its total 0
+    one, _ = bloom.probe_bits_plain(data_tm, bp, words[0], cfg)
+    b, t = kernels.launch_probe(data_tm, bp, words[0], cfg, count=False)
+    torch.cuda.synchronize()
+    assert torch.equal(b, one) and int(t[0]) == 0
+
+
+def test_sharded_session_on_cuda_equals_oracle(cuda):
+    from tpu_pattern_matching_torch.parallel.pshard import ShardedBloom
+
+    rng = np.random.RandomState(8)
+    pats = [bytes(rng.randint(0, 256, size=int(rng.randint(8, 20)))
+                  .astype(np.uint8)) for _ in range(400)]
+    data = bytearray(rng.randint(0, 256, size=1 << 20).astype(np.uint8))
+    for i, pos in enumerate(rng.randint(0, (1 << 20) - 20, size=300)):
+        p = pats[i % len(pats)]
+        data[pos : pos + len(p)] = p
+    data = bytes(data)
+    off, pid, _ = NativeOracle(pats).match(data, cap=1 << 16)
+    want = sorted(zip(off.tolist(), pid.tolist()))
+    for verify in ("host", "device"):
+        sess = MatchSession(compile_patterns(pats), max_chunks=256,
+                            chunk_len=1024, device=cuda, pat_shards=3,
+                            verify=verify)
+        assert isinstance(sess.bloom_table, ShardedBloom)
+        assert sess.find(data) == want
+
+
 def test_rejected_arguments_raise(cuda):
     cfg = make_cfg("sampled", 4, 9, 6, 8)
     w = torch.zeros((6, 8, 128), dtype=torch.int32, device=cuda)

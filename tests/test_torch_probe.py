@@ -12,6 +12,7 @@
 Every output is an integer, so the tolerance is zero."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -178,6 +179,63 @@ def test_kernel_body_on_host_equals_plain(spec):
                                           cfg=as_ref_cfg(cfg), interpret=True)
     np.testing.assert_array_equal(p_bits.numpy(), np.asarray(r_bits))
     assert int(p_total[0]) == int(r_total[0])
+
+
+SHARD_EDGES = [  # (mode, q, stride|w, k, v, S, tile edge, data path)
+    ("sampled", 4, 9, 6, 8, 3, "narrow-tiles", "u8"),
+    ("sampled", 4, 9, 6, 8, 4, "span-ends-mid-tile", "u16"),
+    ("sampled", 3, 5, 4, 2, 2, "one-tile", "u8"),
+    ("sampled", 4, 9, 2, 256, 2, "cp128", "u8"),  # words outside smem
+    ("strided", 4, 4, 6, 16, 2, "span-ends-mid-tile", "u8"),
+    ("strided", 3, 7, 10, 2, 3, "cp128", "u16"),
+    ("strided", 4, 4, 6, 16, 4, "one-tile", "u8"),
+    ("strided", 4, 4, 6, 16, 3, "narrow-tiles", "packed"),
+    ("strided", 4, 8, 6, 16, 2, "cp128", "packed"),
+]
+
+
+@pytest.mark.parametrize(
+    "spec", SHARD_EDGES, ids=["-".join(map(str, s)) for s in SHARD_EDGES])
+def test_or_into_bitmap_on_host_equals_sharded_plain(spec):
+    # the pattern-shard flags of the kernels' tile code (or_into, count),
+    # run tile by tile by g++: S launches into one bitmap, the last one
+    # counting, equal the plain union and its popcount, on tile edges
+    mode, q, sw, k, v, S, edge, path = spec
+    cfg = make_cfg(mode, q, sw, k, v, seed=S)
+    C, T, gt, budget, spans = TILE_EDGES[edge]
+    if gt == "one":
+        cfg = dataclasses.replace(cfg, gt=64 if cfg.sampled else 32)
+    data, bounds = edge_batch(7, C, T, spans, False)
+    if path == "u16":
+        data = (data.astype(np.uint16) * 8) % 2048
+    # shard filters of half their bits (a quarter for k <= 4), so the
+    # union is not all ones and every shard adds survivors of its own
+    rng = np.random.RandomState(S)
+    words = torch.from_numpy(np.stack([
+        random_words(cfg, 20 + s) & (random_words(cfg, 40 + s)
+                                     if k <= 4 else -1)
+        for s in range(S)]))
+    data_tm, Cp = port_bloom.prep_time_major(torch.from_numpy(data), cfg,
+                                             packed=path == "packed")
+    bp = port_bloom.pad_bounds(torch.from_numpy(bounds), Cp)
+    launch = functools.partial(kernels.probe_on_host, smem_budget=budget)
+    h_bits, h_total = port_bloom.or_shards(launch, data_tm, bp, words, cfg)
+    p_bits, p_total = port_bloom.sharded_probe_bits_plain(data_tm, bp, words,
+                                                          cfg)
+    assert torch.equal(h_bits, p_bits)
+    assert int(h_total[0]) == int(p_total[0]) > 0
+    one, one_total = port_bloom.probe_bits_plain(data_tm, bp, words[0], cfg)
+    assert int(p_total[0]) > int(one_total[0])  # the other shards add bits
+    # each flag alone: OR into a bitmap already there (count on), and a
+    # count-less write (its total stays 0)
+    prior = torch.from_numpy(rng.randint(-(2**31), 2**31, size=one.shape)
+                             .astype(np.int32))
+    prior[rng.rand(*one.shape) < 0.7] = 0
+    b, t = launch(data_tm, bp, words[0], cfg, into=prior.clone())
+    assert torch.equal(b, prior | one)
+    assert int(t[0]) == int(port_bloom.popcount(prior | one)[0])
+    b, t = launch(data_tm, bp, words[0], cfg, count=False)
+    assert torch.equal(b, one) and int(t[0]) == 0
 
 
 def test_cpu_probe_never_reaches_the_kernels():

@@ -215,23 +215,34 @@ def test_precompiled_reference_filter_gives_same_events():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(pat_shards=2), "item 10"),
+    # pattern shards (item 10) are ported: the session runs them
+    pytest.param(dict(pat_shards=2), None, id="kw0-item 10"),
     (dict(mesh=2), "item 11"),
 ])
 def test_unported_options_raise(kw, item):
+    table = compile_patterns([b"abcd", b"bcde"])
+    if item is None:
+        sess = MatchSession(table, device="cpu", **kw)
+        assert sess.pat_shards == 2
+        assert sess.find(b"xabcdex") == [(4, 0), (5, 1)]
+        return
     with pytest.raises(NotImplementedError, match=item):
-        MatchSession(compile_patterns([b"abcd"]), device="cpu", **kw)
+        MatchSession(table, device="cpu", **kw)
 
 
 def test_ushort_tables_raise():
     # ushort tables run every single-device path now
     # (tests/test_torch_ushort.py); like byte tables, they raise only for
-    # the options not ported yet
-    table = compile_patterns([[1, 2000, 3]], alphabet_size=2048)
-    for kw, item in ((dict(pat_shards=2), "item 10"),
-                     (dict(mesh=2), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            MatchSession(table, device="cpu", **kw)
+    # the options not ported yet. Pattern shards need the bloom engine: a
+    # ushort table's "auto" is dense, which raises as in the reference
+    table = compile_patterns([[1, 2000, 3], [5, 6]], alphabet_size=2048)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        MatchSession(table, device="cpu", mesh=2)
+    with pytest.raises(ValueError, match="bloom engine"):
+        MatchSession(table, device="cpu", pat_shards=2)
+    assert MatchSession(table, device="cpu", engine="bloom",
+                        pat_shards=2).find(b"7, 1, 2000, 3, 5, 6") == [
+        (3, 0), (5, 1)]
     assert MatchSession(table, device="cpu").find(b"7, 1, 2000, 3") == [
         (3, 0)]
 
@@ -278,6 +289,17 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "import tpu_pattern_matching_torch.apps.sentiment\n"
         "import tpu_pattern_matching_torch.runtime.feeder\n"
         "import tpu_pattern_matching_torch.runtime.tracing\n"
+        "from tpu_pattern_matching_torch.parallel.pshard import "
+        "ShardedBloom\n"
+        "s = session_for_patterns(pats, max_chunks=4, chunk_len=64, "
+        "device='cpu', pat_shards=2)\n"
+        "assert isinstance(s.bloom_table, ShardedBloom)\n"
+        "assert s.find(data) == got\n"
+        "from tpu_pattern_matching_torch.entry import entry\n"
+        "fn, args = entry('cpu')\n"
+        "assert fn(*args)[0].shape == (1,)\n"
+        "from tpu_pattern_matching_torch.tools import fuzz_campaign\n"
+        "assert fuzz_campaign.run_trial(1, 0, 'cpu')['arms']\n"
         "from tpu_pattern_matching_torch.ushort import compile_signatures\n"
         "from tpu_pattern_matching_torch.runtime.session import "
         "MatchSession\n"

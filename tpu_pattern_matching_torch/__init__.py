@@ -13,15 +13,19 @@ Layout mirrors the reference so each module's counterpart is easy to find:
                 gram table, device verify, the dense table, walk and
                 compaction, the CUDA kernel loader.
 - ``runtime`` — ``MatchSession`` (``engine="bloom"`` with
-                ``verify="host"`` or ``"device"``, ``engine="dense"``) and
-                the ``--profile`` trace.
+                ``verify="host"`` or ``"device"``, ``engine="dense"``,
+                ``pat_shards``) and the ``--profile`` trace.
+- ``parallel`` — pattern shards on one device (``pshard``).
 - ``engine``  — the benchmark scan-total hook.
+- ``entry``   — the entry point of the forward probe step.
+- ``tools``   — the fuzz campaign.
 - ``ushort``  — the packet-metadata grep (``run_ushort_grep``).
 - ``cli``     — ``torch_aho_grep``, the reference CLI's surface.
 - ``apps``    — the sentiment app on the port's session and CLI.
 - ``core``    — the DFA compiler, pattern-file parsing and the oracles
                 (Python and native C++).
-- ``utils``   — the explicit device resolver, small helpers, debug log.
+- ``utils``   — the explicit device resolver, small helpers, debug log
+                (``kernel_debug``), the card's peaks and timers.
 
 This package imports nothing of the reference package and never imports
 ``jax``. The reference's host modules that it needs are copied here under

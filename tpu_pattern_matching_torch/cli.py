@@ -25,17 +25,18 @@ block, so the apps that read its standard output work unchanged.
   -i              ASCII case-insensitive matching
   --ushort        packet-metadata mode (signature files, flow files)
   --engine        auto | bloom | dense;  --verify auto | host | device
-  --sort, --sort-global, --save-dfa/--load-dfa, --save-bloom/--load-bloom,
-  --json-stats, --profile DIR (a torch.profiler Chrome trace of the run)
+  --pat-shards S  partition the pattern set into S shard filters (bloom)
+  --sort, --sort-global, --save-dfa/--load-dfa, --save-bloom/--load-bloom
+  (a pattern-sharded dump loads as one), --json-stats, --profile DIR (a
+  torch.profiler Chrome trace of the run)
   --device        cuda (default) | cpu
 
 ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU (the
 counterpart of the reference's ``JAX_PLATFORMS=cpu``) and is the only way
 onto the CPU: without a GPU, ``--device cuda`` exits with an error.
 
-Not ported yet (exit 2, naming the ROADMAP queue-1 item): ``--mesh``,
-``--pat-shards`` > 1, ``--num-processes`` > 1 and a pattern-sharded
-``--load-bloom`` dump.
+Not ported yet (exit 2, naming the ROADMAP queue-1 item): ``--mesh`` and
+``--num-processes`` > 1.
 
 ``check_args``, ``align_parameters``, ``raise_nofile_limit`` and
 ``compile_table`` are copies of the reference's: its module imports the
@@ -103,9 +104,18 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--mesh", default=None, metavar="N|all",
                     help="not ported yet (ROADMAP queue 1, item 11)")
-    ap.add_argument("--pat-shards", dest="pat_shards", type=int, default=1,
-                    metavar="S",
-                    help="not ported yet past 1 (ROADMAP queue 1, item 10)")
+    ap.add_argument(
+        "--pat-shards",
+        dest="pat_shards",
+        type=int,
+        default=1,
+        metavar="S",
+        help="partition the pattern set into S balanced shards, each "
+        "with its own smaller bloom filter (the 300k+-pattern capacity "
+        "axis); the S probes run on one device and OR into one bitmap "
+        "(the (pat, data) grid of --mesh is not ported yet). Bloom "
+        "engine only",
+    )
     ap.add_argument("--num-processes", type=int, default=1,
                     help="not ported yet past 1 (ROADMAP queue 1, item 11)")
     ap.add_argument(
@@ -269,8 +279,6 @@ def check_not_ported(args) -> None:
     """Exit 2, naming the ROADMAP item, for the multi-device flags."""
     if args.mesh is not None:
         _not_ported("--mesh", "item 11")
-    if args.pat_shards > 1:
-        _not_ported("--pat-shards > 1", "item 10")
     if args.num_processes > 1:
         _not_ported("--num-processes > 1", "item 11")
 
@@ -297,14 +305,15 @@ def select_device(args) -> torch.device:
 
 
 def load_bloom(path: str):
-    """The port's filter from a ``--save-bloom`` dump; exits 2 for a
-    pattern-sharded dump (not ported)."""
+    """The port's filter from a ``--save-bloom`` dump of either package:
+    a pattern-sharded dump (``pshard_words``) loads as a ``ShardedBloom``,
+    any other as a ``BloomFilterTable``."""
     from tpu_pattern_matching_torch.ops.bloom import BloomFilterTable
+    from tpu_pattern_matching_torch.parallel.pshard import ShardedBloom
 
     with np.load(path) as z:
-        if "pshard_words" in z:
-            _not_ported("a pattern-sharded --load-bloom dump", "item 10")
-    return BloomFilterTable.load(path)
+        is_sharded = "pshard_words" in z
+    return (ShardedBloom if is_sharded else BloomFilterTable).load(path)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -346,6 +355,7 @@ def main(argv: list[str] | None = None) -> int:
         verify=args.verify,
         device=device,
         bloom_table=bloom_table,
+        pat_shards=args.pat_shards,
     )
     if args.save_bloom:
         if sess.engine == "bloom":

@@ -17,6 +17,15 @@
 // bit b of bits[w, c] is the gram starting at row (w*32 + b)*stride of
 // lane c; *total += popcount of the whole bitmap (zeroed by the caller).
 //
+// Pattern shards (the single-device half of the reference's
+// parallel/pshard.py, _sharded_hits_jit): S filters under one config probe
+// one batch in S launches into one bitmap. Two flags of the entry points
+// make the union on the card: or_into ORs the word already in `bits` into
+// each word written (the thread that writes a word is its only reader),
+// and count gates the popcount into *total. Shard 0 writes (no OR, no
+// count), shards 1..S-2 OR, shard S-1 ORs and counts the union's words;
+// for S = 1 the launch is the flat filter's (no OR, count).
+//
 // What bounds the kernels on this card is the read of the batch (each
 // symbol once) and the integer work per row (the selection hash of every
 // row, the window rule, the bank hashes of the tested rows); the bank
@@ -276,15 +285,27 @@ __device__ __forceinline__ void probe_tiles(
     else
       strided_tile(v, wp, p, t, smem, out);
     __syncthreads();
-    for (int i = tid; i < v.nwords * t.L; i += nthr) {
-      const int w = i >> t.lshift, ln = i & (t.L - 1);
-      const uint32_t acc = out[i];
-      bits[(int64_t)(v.word0 + w) * p.C + v.lane0 + ln] = (int32_t)acc;
-      ones += __popc(acc);
+    // the OR reads the word it writes (one thread owns each word: no
+    // race); a loop of its own, so the flat launch's loop tests no flag
+    if (p.or_into) {
+      for (int i = tid; i < v.nwords * t.L; i += nthr) {
+        const int w = i >> t.lshift, ln = i & (t.L - 1);
+        int32_t* at = bits + (int64_t)(v.word0 + w) * p.C + v.lane0 + ln;
+        const uint32_t acc = out[i] | (uint32_t)*at;
+        *at = (int32_t)acc;
+        ones += __popc(acc);
+      }
+    } else {
+      for (int i = tid; i < v.nwords * t.L; i += nthr) {
+        const int w = i >> t.lshift, ln = i & (t.L - 1);
+        const uint32_t acc = out[i];
+        bits[(int64_t)(v.word0 + w) * p.C + v.lane0 + ln] = (int32_t)acc;
+        ones += __popc(acc);
+      }
     }
   }
   ones = __reduce_add_sync(0xffffffffu, ones);
-  if ((tid & 31) == 0 && ones) atomicAdd(total, (int32_t)ones);
+  if ((tid & 31) == 0 && ones && p.count) atomicAdd(total, (int32_t)ones);
 }
 
 template <typename Sym>
@@ -408,11 +429,13 @@ extern "C" {
 // Each entry point launches on `stream` and returns a CUDA error code
 // (or -1 for arguments the kernels do not take); it never synchronises.
 // `sym16` selects uint16 symbols (else uint8); the packed kernel takes
-// bytes only.
+// bytes only. `or_into` and `count` are the pattern-shard flags (top of
+// the file); 0 and 1 for a flat filter.
 int tpm_probe_sampled(const void* data, const void* bounds, const void* words,
                       void* bits, void* total, int T, int C, int q,
                       int kbanks, int v, int w, int fold, int sym16,
-                      const void* mix1, const void* mix2, void* stream) {
+                      int or_into, int count, const void* mix1,
+                      const void* mix2, void* stream) {
   ProbeParams p;
   TilePlan t;
   if (tpm::fill_params(p, T, C, q, 1, kbanks, v, w, fold,
@@ -420,6 +443,8 @@ int tpm_probe_sampled(const void* data, const void* bounds, const void* words,
                        static_cast<const int64_t*>(mix2)) ||
       w < 1 || !aligned16(data, bounds, words))
     return tpm::kBadArgs;
+  p.or_into = or_into;
+  p.count = count;
   Device d;
   int rc = current_device(d);
   if (!rc) rc = plan_for(p, 1, sym16 ? 2 : 1, d, t);
@@ -439,7 +464,8 @@ int tpm_probe_sampled(const void* data, const void* bounds, const void* words,
 int tpm_probe_strided(const void* data, const void* bounds, const void* words,
                       void* bits, void* total, int T, int C, int q,
                       int stride, int kbanks, int v, int fold, int sym16,
-                      const void* mix1, const void* mix2, void* stream) {
+                      int or_into, int count, const void* mix1,
+                      const void* mix2, void* stream) {
   ProbeParams p;
   TilePlan t;
   if (tpm::fill_params(p, T, C, q, stride, kbanks, v, 0, fold,
@@ -447,6 +473,8 @@ int tpm_probe_strided(const void* data, const void* bounds, const void* words,
                        static_cast<const int64_t*>(mix2)) ||
       !aligned16(data, bounds, words))
     return tpm::kBadArgs;
+  p.or_into = or_into;
+  p.count = count;
   Device d;
   int rc = current_device(d);
   if (!rc) rc = plan_for(p, 0, sym16 ? 2 : 1, d, t);
@@ -467,8 +495,9 @@ int tpm_probe_strided(const void* data, const void* bounds, const void* words,
 int tpm_probe_strided_packed(const void* data, const void* bounds,
                              const void* words, void* bits, void* total,
                              int T, int C, int q, int stride, int kbanks,
-                             int v, int fold, int sym16, const void* mix1,
-                             const void* mix2, void* stream) {
+                             int v, int fold, int sym16, int or_into,
+                             int count, const void* mix1, const void* mix2,
+                             void* stream) {
   ProbeParams p;
   TilePlan t;
   if (tpm::fill_params(p, T, C, q, stride, kbanks, v, 0, fold,
@@ -476,6 +505,8 @@ int tpm_probe_strided_packed(const void* data, const void* bounds,
                        static_cast<const int64_t*>(mix2)) ||
       stride % 4 || q > stride || sym16 || !aligned16(data, bounds, words))
     return tpm::kBadArgs;
+  p.or_into = or_into;
+  p.count = count;
   Device d;
   int rc = current_device(d);
   if (!rc) rc = plan_for(p, 0, 4, d, t);

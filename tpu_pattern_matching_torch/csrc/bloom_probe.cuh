@@ -39,6 +39,11 @@ struct ProbeParams {
   int v;       // 4096-bit units per bank (a power of two)
   int w;       // winnowing window (sampled only)
   int fold;    // ASCII-fold symbols before hashing
+  // The pattern-shard sequence (one launch per shard filter into one
+  // bitmap): or_into ORs the word already in the bitmap into each word
+  // written; count adds the written words' popcount to *total.
+  int or_into;
+  int count;
   uint32_t mix1[kMaxQ];
   uint32_t mix2[kMaxQ];
 };
@@ -417,8 +422,8 @@ TPM_HD bool tile_probe(const TileView<Sym>& v, const uint32_t* words,
 }
 
 // Validates the launch arguments (C a multiple of 128, T of 32*stride,
-// v a power of two, w = 0 for strided) and fills `p`; returns kBadArgs on
-// arguments the kernels do not take.
+// v a power of two, w = 0 for strided) and fills `p` (no OR, count on);
+// returns kBadArgs on arguments the kernels do not take.
 inline int fill_params(ProbeParams& p, int T, int C, int q, int stride,
                        int kbanks, int v, int w, int fold,
                        const int64_t* mix1, const int64_t* mix2) {
@@ -435,6 +440,8 @@ inline int fill_params(ProbeParams& p, int T, int C, int q, int stride,
   p.v = v;
   p.w = w;
   p.fold = fold;
+  p.or_into = 0;
+  p.count = 1;
   for (int i = 0; i < kMaxQ; ++i) {
     p.mix1[i] = i < q ? (uint32_t)mix1[i] : 0u;
     p.mix2[i] = i < q ? (uint32_t)mix2[i] : 0u;

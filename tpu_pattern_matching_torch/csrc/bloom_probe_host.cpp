@@ -3,8 +3,9 @@
 // the queues fill in index order instead of warp order (the bitmap does
 // not depend on the order). Built with g++ (no CUDA needed), it lets the
 // tests hold the kernels' arithmetic to the reference on a machine without
-// a GPU. Same arguments and outputs as the kernels' entry points, minus
-// the stream, plus `mode`: 0 strided, 1 sampled, 2 packed strided (data is
+// a GPU. Same arguments and outputs as the kernels' entry points (the
+// pattern-shard flags or_into and count included), minus the stream, plus
+// `mode`: 0 strided, 1 sampled, 2 packed strided (data is
 // then [T/4, C] uint32, staged as word rows, and T counts symbol rows),
 // and `budget`, the shared-memory bytes per block the tiling may plan for
 // (0: Hopper's 227 KB; smaller budgets give narrower tiles). `sym16`
@@ -97,8 +98,10 @@ int64_t probe_tiles(int sampled, const Sym* data, const int32_t* bd,
     }
     for (int i = 0; i < v.nwords * t.L; ++i) {
       const int w = i >> t.lshift, lane = i & (t.L - 1);
-      out[(int64_t)(v.word0 + w) * p.C + v.lane0 + lane] = (int32_t)words[i];
-      ones += __builtin_popcount(words[i]);
+      int32_t* at = out + (int64_t)(v.word0 + w) * p.C + v.lane0 + lane;
+      const uint32_t acc = p.or_into ? words[i] | (uint32_t)*at : words[i];
+      *at = (int32_t)acc;
+      ones += __builtin_popcount(acc);
     }
   }
   return ones;
@@ -122,13 +125,16 @@ extern "C" int tpm_probe_host(int mode, const void* data,
                               const void* bounds, const void* words,
                               void* bits, void* total, int T, int C, int q,
                               int stride, int kbanks, int v, int w, int fold,
-                              int sym16, const void* mix1, const void* mix2,
+                              int sym16, int or_into, int count,
+                              const void* mix1, const void* mix2,
                               long budget) {
   ProbeParams p;
   TilePlan t;
   if (params_for(mode, p, T, C, q, stride, kbanks, v, w, fold, sym16, mix1,
                  mix2))
     return tpm::kBadArgs;
+  p.or_into = or_into;
+  p.count = count;
   const auto* bd = static_cast<const int32_t*>(bounds);
   const auto* wd = static_cast<const uint32_t*>(words);
   auto* out = static_cast<int32_t*>(bits);
@@ -144,7 +150,7 @@ extern "C" int tpm_probe_host(int mode, const void* data,
   else
     n = probe_tiles(mode, static_cast<const uint8_t*>(data), bd, wd, out, p,
                     t);
-  *static_cast<int32_t*>(total) = (int32_t)n;
+  if (p.count) *static_cast<int32_t*>(total) += (int32_t)n;
   return 0;
 }
 

@@ -34,9 +34,10 @@ def best_scan_total_fn(
     for a lane-major batch ``data [C, halo + chunk_len]`` and its int32
     lane bounds, all on ``device``.
 
-    ``bloom_table`` (this package's ``BloomFilterTable``) reuses a
-    prebuilt filter: the chooser's build takes tens of seconds at 100k
-    patterns. ``max_chunks`` is accepted for the reference's signature;
+    ``bloom_table`` (this package's ``BloomFilterTable``, or a
+    ``parallel.pshard.ShardedBloom``, whose total is the union's over its
+    S shard probes) reuses a prebuilt filter: the chooser's build takes
+    tens of seconds at 100k patterns. ``max_chunks`` is accepted for the reference's signature;
     the batch's own shape decides."""
     dev = resolve_device(device)
     if engine == "auto":

@@ -26,6 +26,11 @@ The device half runs one batch:
    fresh bitmap; past the ``k_ref`` capacity the unrefined bitmap passes
    through unchanged.
 
+Pattern shards (``parallel/pshard.py``): ``sharded_probe_bits`` probes
+one batch with S filters under one config into one union bitmap and its
+popcount — on the card S launches of the same kernels, each ORing into
+the bitmap of the one before (``or_shards``), the last one counting.
+
 Bitmap contract (shared with ``bitmap_to_candidates`` and
 ``unpack_hit_rows``): bit b of ``bits[w, c]`` is the gram starting at row
 ``(w*32 + b) * stride`` of lane c.
@@ -37,6 +42,8 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+
+from tpu_pattern_matching_torch.utils.debug import kernel_debug
 
 MASK32 = 0xFFFFFFFF
 MAX_BANKS_PER_KERNEL = 8  # the TPU kernel's bank-group size; only the
@@ -119,6 +126,16 @@ class BloomConfig:
     @property
     def tile_rows(self) -> int:
         return self.gt * self.stride
+
+
+def config_from_reference(c) -> BloomConfig:
+    """The port's ``BloomConfig`` from the reference package's (or any
+    object with its fields)."""
+    return BloomConfig(**{
+        f.name: (tuple(int(x) for x in getattr(c, f.name))
+                 if f.name in ("mix1", "mix2") else getattr(c, f.name))
+        for f in dataclasses.fields(BloomConfig)
+    })
 
 
 def _hash_fields_np(m1, m2, b, v):
@@ -567,16 +584,10 @@ class BloomFilterTable:
         ``BloomFilterTable`` (or any object with its fields): the same
         words, config and exact gram keys, as numpy arrays — how a filter
         compiled by one package feeds the other."""
-        c = obj.cfg
-        cfg = BloomConfig(**{
-            f.name: (tuple(int(x) for x in getattr(c, f.name))
-                     if f.name in ("mix1", "mix2") else getattr(c, f.name))
-            for f in dataclasses.fields(BloomConfig)
-        })
         keys = getattr(obj, "gram_keys", None)
         return BloomFilterTable(
             words=np.ascontiguousarray(np.asarray(obj.words), np.int32),
-            cfg=cfg,
+            cfg=config_from_reference(obj.cfg),
             max_pat_len=int(obj.max_pat_len),
             n_grams=int(obj.n_grams),
             fp_est=float(obj.fp_est),
@@ -766,6 +777,68 @@ def probe_bits(data_tm, bounds, words, cfg: BloomConfig):
     return probe_bits_plain(data_tm, bounds, words, cfg)
 
 
+def _shard_count(words) -> int:
+    """S of a stack of shard filters ``words [S, k, v, 128]``."""
+    if words.dim() != 4 or words.shape[0] < 1:
+        raise ValueError(f"words must be [S, k, v, 128] with S >= 1, got "
+                         f"{tuple(words.shape)}")
+    return words.shape[0]
+
+
+def or_shards(launch, data_tm, bounds, words, cfg: BloomConfig):
+    """The pattern-shard sequence of probe launches: ``words [S, k, v,
+    128]`` holds S filters under ``cfg``; shard s is probed by ``launch``
+    (``kernels.launch_probe``'s signature) into the bitmap of shard s - 1
+    (``into``; shard 0 writes a new one), and only the last launch counts,
+    so its total is the union's popcount. For S = 1 it is one plain
+    launch. Returns ``(bits, total)`` of the union."""
+    n = _shard_count(words)
+    bits = total = None
+    for s in range(n):
+        bits, total = launch(data_tm, bounds, words[s], cfg, into=bits,
+                             count=s == n - 1)
+    return bits, total
+
+
+def sharded_probe_bits(data_tm, bounds, words, cfg: BloomConfig):
+    """Union survivor bitmap and its popcount of S filters under one
+    config (``words [S, k, v, 128]``) on one time-major batch: a position
+    is a candidate iff some shard's filter accepts its gram. Same inputs
+    and outputs as :func:`probe_bits` otherwise.
+
+    A CUDA tensor goes to S launches of the probe kernel (``or_shards``)
+    or raises; a CPU tensor goes to :func:`sharded_probe_bits_plain`."""
+    if data_tm.is_cuda:
+        from tpu_pattern_matching_torch.ops import kernels
+
+        return or_shards(kernels.launch_probe, data_tm, bounds, words, cfg)
+    if data_tm.device.type != "cpu":
+        raise ValueError(f"no probe for device {data_tm.device}")
+    return sharded_probe_bits_plain(data_tm, bounds, words, cfg)
+
+
+def sharded_probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
+    """Plain PyTorch version of :func:`sharded_probe_bits`: S calls of
+    :func:`probe_bits_plain`, ORed, and the union's bits counted — the
+    CPU path and what the OR-into-bitmap launches are held to on the
+    card."""
+    bits = None
+    for s in range(_shard_count(words)):
+        b, _total = probe_bits_plain(data_tm, bounds, words[s], cfg)
+        bits = b if bits is None else bits | b
+    return bits, popcount(bits)
+
+
+def popcount(bits):
+    """The set bits of an int32 bitmap, as an int32 ``[1]`` tensor
+    (torch has no popcount)."""
+    import torch
+
+    u = bits.reshape(-1, 1).to(torch.int64) & MASK32
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return ((u >> shifts) & 1).sum().to(torch.int32).reshape(1)
+
+
 def probe_bits_plain(data_tm, bounds, words, cfg: BloomConfig):
     """Plain PyTorch version of the probe kernels (both modes), vectorised
     over ``[T, Cp]`` in int64 masked to 32 bits (torch's ``>>`` on int32
@@ -862,14 +935,20 @@ def _use_packed(packed, cfg: BloomConfig, data) -> bool:
     return bool(packed)
 
 
+def _probe(data, bounds, words, cfg: BloomConfig, packed):
+    data_tm, Cp = prep_time_major(data, cfg, _use_packed(packed, cfg, data))
+    bits, total = probe_bits(data_tm, pad_bounds(bounds, Cp), words, cfg)
+    return total, bits
+
+
 def hits(data, bounds, words, cfg: BloomConfig, packed=None):
     """Pad + transpose + probe + popcount of one lane-major batch:
     ``data [C, T]``, ``bounds [2, C]`` -> ``(total [1], bits [W, Cp])``.
 
     ``packed=None`` follows ``PACKED_AUTO``; True/False force the
     uint32-packed (K3) or byte data path — the same bitmap either way."""
-    data_tm, Cp = prep_time_major(data, cfg, _use_packed(packed, cfg, data))
-    bits, total = probe_bits(data_tm, pad_bounds(bounds, Cp), words, cfg)
+    total, bits = _probe(data, bounds, words, cfg, packed)
+    kernel_debug("bloom batch: {} survivor grams", total)  # TPM_DEBUG>=2
     return total, bits
 
 
@@ -893,7 +972,7 @@ def hits_refined(data, bounds, words, dx, cfg: BloomConfig, k_ref: int,
     from .verify_device import bitmap_to_candidates
 
     C, T = data.shape
-    total0, bits = hits(data, bounds, words, cfg, packed)
+    total0, bits = _probe(data, bounds, words, cfg, packed)
     n_cand, lane, row, over = bitmap_to_candidates(bits, cfg.stride, k_ref)
     dev = bits.device
     slotv = torch.arange(k_ref, device=dev) < n_cand
@@ -910,6 +989,10 @@ def hits_refined(data, bounds, words, dx, cfg: BloomConfig, k_ref: int,
     ref.index_add_(0, flat, to_int32(torch.ones_like(bitrow) << (bitrow & 31)))
     ref = ref[: W * Cb].reshape(W, Cb)
     total = torch.where(over, total0[0], keep.sum().to(torch.int32))
+    kernel_debug(
+        "bloom batch: {} survivors, {} after exact-gram refinement",
+        total0, total,
+    )  # TPM_DEBUG>=2
     return total.reshape(1), torch.where(over, bits, ref)
 
 

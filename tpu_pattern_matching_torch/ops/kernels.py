@@ -167,7 +167,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 def _bind_probe_cuda(lib) -> None:
     for fn in (lib.tpm_probe_sampled, lib.tpm_probe_strided,
                lib.tpm_probe_strided_packed):
-        fn.argtypes = [P] * 5 + [I] * 8 + [P] * 3
+        fn.argtypes = [P] * 5 + [I] * 10 + [P] * 3
         fn.restype = I
     lib.tpm_probe_plan.argtypes = [I] * 9 + [P]
     lib.tpm_probe_plan.restype = I
@@ -176,7 +176,7 @@ def _bind_probe_cuda(lib) -> None:
 
 
 def _bind_probe_host(lib) -> None:
-    lib.tpm_probe_host.argtypes = ([I] + [P] * 5 + [I] * 9 + [P] * 2
+    lib.tpm_probe_host.argtypes = ([I] + [P] * 5 + [I] * 11 + [P] * 2
                                    + [ctypes.c_long])
     lib.tpm_probe_host.restype = I
     lib.tpm_probe_plan_host.argtypes = [I] * 9 + [ctypes.c_long, P]
@@ -353,29 +353,44 @@ def probe_mode(data_tm, cfg) -> str:
     return mode + "_u16" if data_tm.dtype == torch.uint16 else mode
 
 
-def launch_probe(data_tm, bounds, words, cfg):
+def _probe_outputs(data_tm, T, Cp, cfg, into):
+    """A probe launch's bitmap (a new one, or ``into``, checked) and its
+    zeroed total, on ``data_tm``'s device."""
+    shape = (T // (32 * cfg.stride), Cp)
+    if into is None:
+        bits = torch.empty(shape, dtype=torch.int32, device=data_tm.device)
+    else:
+        _check_i32("into", into, shape)
+        _same_device(data_tm, into=into)
+        bits = into
+    return bits, torch.zeros(1, dtype=torch.int32, device=data_tm.device)
+
+
+def launch_probe(data_tm, bounds, words, cfg, into=None, count=True):
     """Launch the probe kernel of ``cfg``'s mode and ``data_tm``'s symbol
     width on the current stream (the packed strided kernel for an int32
     ``data_tm``).
 
     Same contract as ``ops.bloom.probe_bits``; CUDA tensors only. Returns
     ``(bits [T/(32*stride), Cp] int32, total [1] int32)`` without
-    synchronising."""
+    synchronising. The pattern-shard sequence (``ops.bloom.or_shards``)
+    passes ``into``, an earlier launch's bitmap, which the kernel ORs its
+    words into and returns, and ``count=False`` for every shard but the
+    last, whose total is then the union's popcount; a count-less launch
+    leaves its total 0."""
     if not data_tm.is_cuda:
         raise ValueError(f"launch_probe needs CUDA tensors, got "
                          f"{data_tm.device}")
     T, Cp, sym16 = _check(data_tm, bounds, words, cfg)
     dev = data_tm.device
     lib = cuda_library()
-    bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32,
-                       device=dev)
-    total = torch.zeros(1, dtype=torch.int32, device=dev)
+    bits, total = _probe_outputs(data_tm, T, Cp, cfg, into)
     mix1, mix2 = _mixes(cfg)
     ptrs = (data_tm.data_ptr(), bounds.data_ptr(), words.data_ptr(),
             bits.data_ptr(), total.data_ptr())
     mode = probe_mode(data_tm, cfg)
-    tail = (int(cfg.fold_case), sym16, mix1.ctypes.data, mix2.ctypes.data,
-            _stream(dev))
+    tail = (int(cfg.fold_case), sym16, int(into is not None), int(count),
+            mix1.ctypes.data, mix2.ctypes.data, _stream(dev))
     with torch.cuda.device(dev):
         if cfg.sampled:
             rc = lib.tpm_probe_sampled(*ptrs, T, Cp, cfg.q, cfg.kbanks, cfg.v,
@@ -429,21 +444,23 @@ def probe_plan_on_host(T, Cp, cfg, sym16=0, smem_budget=0,
     return dict(zip(PLAN_KEYS, out))
 
 
-def probe_on_host(data_tm, bounds, words, cfg, smem_budget: int = 0):
+def probe_on_host(data_tm, bounds, words, cfg, smem_budget: int = 0,
+                  into=None, count=True):
     """The kernels' own tile code run on the CPU, tile by tile (a test
     harness, not a kernel): CPU tensors in, ``(bits, total)`` CPU tensors
     out. ``smem_budget`` (bytes per block, 0: Hopper's 227 KB) sets the
-    tiling the kernels would plan for."""
+    tiling the kernels would plan for; ``into`` and ``count`` are
+    ``launch_probe``'s."""
     T, Cp, sym16 = _check(data_tm, bounds, words, cfg)
-    bits = torch.empty((T // (32 * cfg.stride), Cp), dtype=torch.int32)
-    total = torch.zeros(1, dtype=torch.int32)
+    bits, total = _probe_outputs(data_tm, T, Cp, cfg, into)
     mix1, mix2 = _mixes(cfg)
     mode = (2 if data_tm.dtype == torch.int32 else int(cfg.sampled))
     rc = host_library().tpm_probe_host(
         mode, data_tm.data_ptr(), bounds.data_ptr(),
         words.data_ptr(), bits.data_ptr(), total.data_ptr(), T, Cp, cfg.q,
         cfg.stride, cfg.kbanks, cfg.v, cfg.w, int(cfg.fold_case), sym16,
-        mix1.ctypes.data, mix2.ctypes.data, smem_budget,
+        int(into is not None), int(count), mix1.ctypes.data,
+        mix2.ctypes.data, smem_budget,
     )
     if rc:
         raise RuntimeError(f"host probe rejected its arguments (code {rc})")

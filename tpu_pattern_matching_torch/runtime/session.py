@@ -24,8 +24,14 @@ Byte tables (alphabet 256) run on uint8 lanes; ushort tables (alphabet
 parses flow text), with 11-bit exact-gram keys, through the same three
 pipelines and the uint16 builds of the kernels.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue-1 item): pattern shards and meshes.
+``pat_shards=S`` (bloom engine) partitions the pattern set into S shard
+filters under one config (``parallel/pshard.py``): the S probes OR into
+one union bitmap on the device, which either verify stage walks as it
+walks one filter's. As in the reference, the union bitmap is not refined
+on the device: the host verifier walks it as probed.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue-1
+item): meshes.
 """
 
 from __future__ import annotations
@@ -124,8 +130,17 @@ class MatchSession:
         candidates is verified in passes over ranges of lanes), or
         "auto" (= host).
         ``bloom_table``: a precompiled filter of this package
-        (``BloomFilterTable.load`` or ``from_reference``) skips the
-        chooser."""
+        (``BloomFilterTable`` or ``parallel.pshard.ShardedBloom``, built,
+        loaded or ``from_reference``) skips the chooser.
+
+        ``pat_shards=S`` partitions the PATTERN SET into S balanced
+        shards, each with its own smaller bloom filter under one common
+        config (``parallel/pshard.py``) — the capacity axis for 300k+
+        pattern sets, where a single filter saturates. The S probes OR
+        into one bitmap on the device, so decode and verify see one union
+        bitmap and events are IDENTICAL to the unsharded engine's. Bloom
+        engine only; inferred from a precompiled ``ShardedBloom``."""
+        from tpu_pattern_matching_torch.parallel.pshard import ShardedBloom
         from tpu_pattern_matching_torch.runtime.verify import Verifier
         from tpu_pattern_matching_torch.utils.common import pad_halo
         from tpu_pattern_matching_torch.utils.debug import dprint
@@ -142,14 +157,25 @@ class MatchSession:
             raise ValueError(f"unknown engine {engine!r}")
         if verify not in ("auto", "host", "device"):
             raise ValueError(f"unknown verify mode {verify!r}")
+        if isinstance(bloom_table, ShardedBloom):
+            if pat_shards not in (1, bloom_table.n_shards):
+                raise ValueError(
+                    f"pat_shards={pat_shards} but the precompiled filter "
+                    f"has {bloom_table.n_shards} shards"
+                )
+            pat_shards = bloom_table.n_shards
         if pat_shards < 1:
             raise ValueError(f"pat_shards must be >= 1, got {pat_shards}")
-        if pat_shards > 1:
-            raise _not_ported("pat_shards > 1", "item 10")
         if mesh is not None:
             raise _not_ported("mesh=", "item 11")
         if engine == "auto":
             engine = "bloom" if table.alphabet_size == 256 else "dense"
+        if pat_shards > 1 and engine != "bloom":
+            raise ValueError(
+                "pat_shards applies to the bloom engine (the dense walk "
+                "has no filter to shard); pass engine='bloom'"
+            )
+        self.pat_shards = pat_shards
         self.engine = engine
         self.verify_mode = (
             "host" if verify == "auto" else verify
@@ -178,11 +204,13 @@ class MatchSession:
             dprint(1, "session: engine=dense chunks=%dx%d halo=%d device=%s",
                    max_chunks, chunk_len, self.halo, self.device)
             return
-        bft = (
-            bloom_table
-            if bloom_table is not None
-            else BloomFilterTable.from_table(table, **(bloom_opts or {}))
-        )
+        if bloom_table is not None:
+            bft = bloom_table
+        elif pat_shards > 1:
+            bft = ShardedBloom.from_table(table, pat_shards,
+                                          **(bloom_opts or {}))
+        else:
+            bft = BloomFilterTable.from_table(table, **(bloom_opts or {}))
         self.bloom_table = bft
         self._bloom = bft.put(self.device)
         if self.verify_mode == "device":
@@ -203,11 +231,14 @@ class MatchSession:
                 fold_case=bft.cfg.fold_case,
                 dense_table=table,  # fast native window walker
             )
-            if bft.gram_keys is not None and len(bft.gram_keys):
+            if (not isinstance(bft, ShardedBloom)
+                    and bft.gram_keys is not None and len(bft.gram_keys)):
                 # refine the survivor bitmap on the device with the exact
                 # inserted gram set, so the host walks only true gram
                 # occurrences; the capacity comes from the chooser's
-                # modeled candidate rate with REFINE_HEADROOM slack
+                # modeled candidate rate with REFINE_HEADROOM slack. A
+                # sharded filter's union bitmap goes to the host as
+                # probed, as in the reference
                 batch_positions = max_chunks * (self.halo + chunk_len)
                 rate = bft.expected_cand_rate()
                 k_ref = next_cap(int(min(
@@ -216,9 +247,9 @@ class MatchSession:
                 )))
                 self._bloom.attach_exact(bft.gram_keys, k_ref,
                                          bits=bft.gram_bits)
-        dprint(1, "session: engine=bloom verify=%s chunks=%dx%d halo=%d "
-               "device=%s", self.verify_mode, max_chunks, chunk_len,
-               self.halo, self.device)
+        dprint(1, "session: engine=bloom verify=%s pat_shards=%d "
+               "chunks=%dx%d halo=%d device=%s", self.verify_mode,
+               pat_shards, max_chunks, chunk_len, self.halo, self.device)
 
     # ------------------------------------------------------------- plumbing
 

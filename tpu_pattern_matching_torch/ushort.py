@@ -94,10 +94,15 @@ def run_ushort_grep(args, device) -> int:
     MatchSession on the chosen engine — ``bloom`` probes the alphabet-2048
     filter and verifies candidates (host walker, or ``--verify device``);
     ``dense`` walks the DFA on the device. "auto" is bloom on a CUDA
-    device and dense elsewhere (the reference: bloom on a TPU)."""
+    device and dense elsewhere (the reference: bloom on a TPU);
+    ``--pat-shards`` > 1 forces bloom (S shard filters, one union
+    bitmap)."""
     engine = getattr(args, "engine", "auto")
     if engine == "auto":
         engine = "bloom" if device.type == "cuda" else "dense"
+    pat_shards = getattr(args, "pat_shards", 1)
+    if pat_shards > 1:  # pattern shards are bloom filters
+        engine = "bloom"
     table = compile_signatures(args.pat_path, max_tokens=16)
 
     filenames = expand_paths(args.data_path)
@@ -115,6 +120,7 @@ def run_ushort_grep(args, device) -> int:
         engine=engine,
         verify=getattr(args, "verify", "auto"),
         device=device,
+        pat_shards=pat_shards,
     )
     feeder = Feeder(
         filenames,
