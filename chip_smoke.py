@@ -87,6 +87,25 @@ Phases (any failure exits non-zero at once):
               probe; and about 10 trials of the port's fuzz campaign
               (``tools.fuzz_campaign``) on the card, bounded to about
               20 s;
+10c. mesh1 — the data-parallel mesh (``parallel/mesh.py``) at world 1: a
+              1-rank NCCL group in this process on cuda:0, through
+              ``MatchSession(mesh=...)`` with host verify, device verify
+              and dense on both workloads (events equal the oracle's and,
+              batch by batch with their totals, the flat session's; the
+              find ms of each beside the flat find's; the collectives'
+              ms a batch by CUDA events and on the host),
+              ``ShardedBloomCounter.count`` against the flat device-verify
+              ``decode_counts`` on every bench batch, and the byte CLI with
+              ``--mesh all`` on phase 8's 16 files (totals equal the
+              oracle's); the group is destroyed after it;
+10d. mesh2 — two gloo ranks on cuda:0, spawned as ``chip_smoke.py
+              --mesh2-rank R DIR``, each on 2048 lanes of the bench
+              workload's first 4096-lane batch: per path, the union of the
+              ranks' events, their totals and counts equal the flat
+              session's on the same batch in this process, the count step
+              equals the flat ``decode_counts``, and each rank's launch
+              counts show the path's kernels; a rank's failure, or one
+              that runs past MESH_TIMEOUT_S, fails the script;
 11. proto   — the prototype probes of the reference's
               ``benchmarks/exp_bloom.py`` (K4, one tile [286, 512]; K5, the
               grid [58368, 1024] of 128 tiles with their pad rows), each
@@ -114,9 +133,11 @@ Phases (any failure exits non-zero at once):
               session thins the traces after it);
 14. no jax  — the port never imported jax nor the JAX package.
 
-Each of phases 3-9, 10b and 11 sets every launch count to 0 before its
-path and reads them after it; each fails unless the kernels of its path
-were launched. Each of phases 7-9, 10b and 11 prints its wall time.
+Each of phases 3-9, 10b, 10c, 10d (in each rank) and 11 sets every
+launch count to 0 before its path and reads them after it; each fails
+unless the kernels of its path were launched. Each of phases 7-9, 10b,
+10c, 10d and 11 prints its wall time. The summary gives each kernel's
+launches on the mesh paths (``mesh_launches``).
 The last lines are the card's name and power limit, a JSON line with the
 per-kernel summary (every kernel at each symbol width, with its bound,
 share and, for the probes, its numbers on the main path's inputs), and
@@ -1998,9 +2019,374 @@ def phase_pshard(torch, bloom, kernels, MatchSession, workloads, ush, tmp,
     return out
 
 
+# ------------------------------------------------------------ mesh phases
+
+MESH_DEVICE = "cuda:0"  # the mesh phases' device: every rank's
+MESH2_RANKS = 2  # ranks of the mesh2 phase, all on MESH_DEVICE over gloo
+MESH_TIMEOUT_S = 300  # a mesh2 rank past it is killed and the script fails
+MESH_PATHS = (  # (label, session options); the probe kernel comes from the
+    # workload's filter (sampled: the bench workload, strided: the other)
+    ("host verify", {}),
+    ("device verify", {"verify": "device"}),
+    ("dense", {"engine": "dense"}),
+)
+
+
+def path_kernels(kw, w) -> tuple:
+    """The launch-count keys a mesh path must move on workload ``w``."""
+    if kw.get("engine") == "dense":
+        return ("dense_walk",)
+    probe = "sampled" if w["bloom_table"].cfg.sampled else "strided"
+    return (probe, "window_walk") if kw.get("verify") == "device" else (
+        probe,)
+
+
+class CollectiveTimer:
+    """Times every ``all_reduce`` of a mesh context while it is installed:
+    device ms by CUDA events on the current stream around each call (for
+    NCCL, its kernel; for gloo with CUDA tensors, the copies and the wait
+    for the host reduce), and host ms of the calls."""
+
+    def __init__(self, torch, ctx):
+        self.torch, self.ctx = torch, ctx
+        self.pairs, self.host_s = [], 0.0
+        orig = ctx.all_reduce
+
+        def timed(t, op="sum"):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = orig(t, op)
+            self.host_s += time.perf_counter() - t0
+            stop.record()
+            self.pairs.append((start, stop))
+            return out
+
+        ctx.all_reduce = timed  # shadows the method until close()
+
+    def close(self) -> tuple[float, float, int]:
+        """(device ms, host ms, calls) of the collectives timed."""
+        del self.ctx.all_reduce
+        self.torch.cuda.synchronize()
+        return (sum(a.elapsed_time(b) for a, b in self.pairs),
+                self.host_s * 1e3, len(self.pairs))
+
+
+def find_ms(torch, sess, w, label) -> float:
+    """ms of one ``find`` of the workload (after a 1 MiB warm-up), whose
+    events must equal the oracle's."""
+    return len(w["data"]) / timed_find(torch, sess, w, label) * 1e3
+
+
+def batch_events(bm) -> list:
+    return sorted((e.lane, e.file_id, e.end_offset, e.gid,
+                   tuple(e.pattern_indices)) for e in bm.events)
+
+
+def phase_mesh1(torch, kernels, MatchSession, workloads, tmp,
+                card_line) -> dict:
+    """The data-parallel mesh at world 1: a 1-rank NCCL group in this
+    process on cuda:0 (``parallel.mesh.world_context``), through
+    ``MatchSession(mesh=...)`` on each path and both workloads (events
+    equal the oracle's and, batch by batch with their totals, the flat
+    session's; find ms beside the flat find's; the collectives' ms a
+    batch), ``ShardedBloomCounter`` against the flat ``decode_counts`` on
+    every bench batch, and the byte CLI with ``--mesh all`` on phase 8's
+    16 files. Returns the launch counts of each path's mesh find."""
+    import torch.distributed as dist
+
+    from tpu_pattern_matching_torch.cli import main as cli_main
+    from tpu_pattern_matching_torch.parallel.mesh import (
+        ShardedBloomCounter,
+        default_backend,
+        world_context,
+    )
+    from tpu_pattern_matching_torch.runtime.buffers import StreamState
+
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        fail("[mesh1] a process group exists before the phase")
+    ctx = world_context(MESH_DEVICE)
+    if (ctx.world_size, ctx.device, ctx.backend) != (
+            1, torch.device(MESH_DEVICE), default_backend(ctx.device)):
+        fail(f"[mesh1] {ctx}")
+    launches = {}
+    try:
+        for w in workloads:
+            batches = -(-len(w["data"]) // (BATCH_LANES * CHUNK_LEN))
+            for label, kw in MESH_PATHS:
+                flat = session(MatchSession, w, bloom_table=w["bloom_table"],
+                               **kw)
+                sess = session(MatchSession, w, bloom_table=w["bloom_table"],
+                               mesh=ctx, **kw)
+                flat_ms = find_ms(torch, flat, w, "mesh1 flat")
+                reset(kernels)
+                mesh_ms = find_ms(torch, sess, w, "mesh1")
+                got = read_launches(kernels, f"mesh1 {label}",
+                                    path_kernels(kw, w))
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+                for i, (a, b) in enumerate(zip(
+                        sess.scan_stream(io.BytesIO(w["data"])),
+                        flat.scan_stream(io.BytesIO(w["data"])))):
+                    if batch_events(a) != batch_events(b) or (
+                            a.total, a.reported, a.overflowed) != (
+                            b.total, b.reported, b.overflowed):
+                        fail(f"[mesh1] {label}, {w['label']}, batch {i}: "
+                             f"{a.total}/{a.reported} events, flat "
+                             f"{b.total}/{b.reported}")
+                timer = CollectiveTimer(torch, ctx)
+                sess.find(w["data"])
+                dev_ms, host_ms, calls = timer.close()
+                print(f"[mesh1] {label}, {w['label']}: find over "
+                      f"{len(w['data'])} B -> {len(w['want'])} events == "
+                      f"native oracle, every batch's events and totals == "
+                      f"the flat session's; find {mesh_ms:.4f} ms on the "
+                      f"1-rank mesh, {flat_ms:.4f} ms flat; collectives "
+                      f"{dev_ms / batches:.4f} ms a batch by CUDA events, "
+                      f"{host_ms / batches:.4f} ms host ({calls} all_reduce "
+                      f"over {batches} batches, {ctx.backend} world 1; "
+                      f"{card_line})",
+                      flush=True)
+        w = workloads[0]
+        mesh_b = session(MatchSession, w, bloom_table=w["bloom_table"],
+                         mesh=ctx)
+        flat_d = session(MatchSession, w, bloom_table=w["bloom_table"],
+                         verify="device")
+        counter = ShardedBloomCounter(
+            ctx, mesh_b._bloom, w["table"], halo=mesh_b.halo,
+            gram_keys=w["bloom_table"].gram_keys)
+        buf = mesh_b.new_buffer()
+        fobj, stream, n_b = io.BytesIO(w["data"]), StreamState(file_id=0), 0
+        reset(kernels)
+        while True:
+            code, rd = buf.add_stream(fobj, stream)
+            if buf.chunks and (code == -1 or rd == 0):
+                batch = buf.to_batch()
+                data = torch.from_numpy(batch.data).to(ctx.device)
+                bounds = torch.from_numpy(np.stack(
+                    [batch.start_t, batch.end_t])).to(ctx.device)
+                gc, n_ev = counter.count(data, bounds)
+                n_f, gc_f = flat_d.decode_counts(batch, flat_d.scan(batch))
+                if n_ev != n_f or not np.array_equal(gc, gc_f):
+                    fail(f"[mesh1] count step, batch {n_b}: {n_ev} events, "
+                         f"flat decode_counts {n_f}")
+                n_b += 1
+                buf.reset()
+            if rd == 0:
+                break
+        print(f"[mesh1] ShardedBloomCounter.count == flat decode_counts on "
+              f"{n_b} bench batches; capacities k_cand {counter.k_cand} "
+              f"k_ev {counter.k_ev} k_walk {counter.k_walk}", flush=True)
+        d = os.path.join(tmp, "bytes")  # phase 8's 16 files and dumps
+        want_total, n_inside = cli_oracle(w)
+        reset(kernels)
+        _, st = run_cli(cli_main, ["-f", d, "--load-dfa",
+                                   os.path.join(tmp, "bench.dfa.npz"),
+                                   "--load-bloom",
+                                   os.path.join(tmp, "bench.bloom.npz"),
+                                   "-B", str(CHUNK_LEN), "-G",
+                                   str(BATCH_LANES), "--mesh", "all"])
+        if (st["matches_total"], st["matches_reported"]) != (want_total,
+                                                             n_inside):
+            fail(f"[mesh1] cli --mesh all: matches {st['matches_total']}/"
+                 f"{st['matches_reported']}, oracle {want_total}/{n_inside}")
+        read_launches(kernels, "mesh1 cli", ("sampled",))
+        print(f"[mesh1] byte CLI --mesh all over {CLI_FILES} files: "
+              f"matches_total {st['matches_total']} == oracle", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh1] phase wall time {time.perf_counter() - t_phase:.2f} s "
+          f"({card_line})", flush=True)
+    return launches
+
+
+def mesh2_rank(rank: int, tmp: str) -> None:
+    """One rank of phase mesh2 (``chip_smoke.py --mesh2-rank R DIR``): a
+    gloo rank on cuda:0 that runs each path on its lanes of the global
+    batch in ``DIR`` and the count step, reads its launch counts, and
+    writes ``DIR/rank<R>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_pattern_matching_torch.core.dfa import DfaTable
+    from tpu_pattern_matching_torch.ops import kernels
+    from tpu_pattern_matching_torch.ops.bloom import BloomFilterTable
+    from tpu_pattern_matching_torch.parallel import mesh
+    from tpu_pattern_matching_torch.runtime.buffers import HostBatch
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+    mesh.init_distributed(f"file://{tmp}/rendezvous", MESH2_RANKS, rank,
+                          backend="gloo", device=MESH_DEVICE)
+    ctx = mesh.world_context(MESH_DEVICE)
+    table = DfaTable.load(os.path.join(tmp, "table.npz"))
+    bft = BloomFilterTable.load(os.path.join(tmp, "bloom.npz"))
+    c_local = BATCH_LANES // MESH2_RANKS
+    lanes = slice(rank * c_local, (rank + 1) * c_local)
+    with np.load(os.path.join(tmp, "batch.npz")) as z:
+        part = {k: np.ascontiguousarray(z[k][lanes]) for k in (
+            "data", "start_t", "end_t", "file_ids", "base_off")}
+        halo = int(z["halo"])
+    batch = HostBatch(chunks=int((part["file_ids"] >= 0).sum()), halo=halo,
+                      **part)
+    out = {}
+    for p, (label, kw) in enumerate(MESH_PATHS):
+        sess = MatchSession(table, max_chunks=BATCH_LANES,
+                            chunk_len=CHUNK_LEN, mesh=ctx, bloom_table=bft,
+                            **kw)
+        if sess.local_chunks != c_local:
+            raise RuntimeError(f"{label}: {sess.local_chunks} lanes a rank")
+        sess.decode(batch, sess.scan(batch))  # warm-up
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm = sess.decode(batch, sess.scan(batch))
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        out[f"launches_{p}"] = np.array([kernels.launches[k] for k in (
+            "sampled", "window_walk", "dense_walk")])
+        n, gc = sess.decode_counts(batch, sess.scan(batch))
+        timer = CollectiveTimer(torch, ctx)
+        sess.decode(batch, sess.scan(batch))
+        dev_ms, host_ms, calls = timer.close()
+        out[f"events_{p}"] = np.array(
+            [[e.lane + rank * c_local, e.file_id, e.end_offset, e.gid]
+             for e in bm.events], np.int64).reshape(-1, 4)
+        out[f"totals_{p}"] = np.array([bm.total, bm.reported, bm.overflowed])
+        out[f"counts_{p}"] = np.concatenate([[n], gc])
+        out[f"times_{p}"] = np.array([batch_ms, dev_ms, host_ms, calls])
+    counter = mesh.ShardedBloomCounter(ctx, bft.put(ctx.device), table,
+                                       halo=halo, gram_keys=bft.gram_keys)
+    data = torch.from_numpy(batch.data).to(ctx.device)
+    bounds = torch.from_numpy(np.stack([batch.start_t, batch.end_t])).to(
+        ctx.device)
+    gc, n_ev = counter.count(data, bounds)
+    out["count"] = np.concatenate([[n_ev], gc])
+    imported = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "tpu_pattern_matching")]
+    if imported:
+        raise RuntimeError(f"imported {imported}")
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def phase_mesh2(torch, MatchSession, workloads, tmp, card_line) -> dict:
+    """Two gloo ranks on cuda:0 (spawned ``chip_smoke.py --mesh2-rank``),
+    each on 2048 lanes of the bench point's first global batch (4096
+    lanes x 4112): per path, the union of the ranks' events and their
+    totals and counts equal the flat session's on the same batch in this
+    process, the count step equals the flat ``decode_counts``, and each
+    rank's launch counts show the path's kernels. Returns the ranks'
+    launch counts."""
+    import subprocess
+
+    from tpu_pattern_matching_torch.runtime.buffers import DataBuffer
+    from tpu_pattern_matching_torch.runtime.buffers import StreamState
+
+    t_phase = time.perf_counter()
+    w = workloads[0]
+    d = os.path.join(tmp, "mesh2")
+    os.makedirs(d)
+    w["table"].save(os.path.join(d, "table.npz"))
+    w["bloom_table"].save(os.path.join(d, "bloom.npz"))
+    buf = DataBuffer(BATCH_LANES, CHUNK_LEN, HALO)
+    buf.add_stream(io.BytesIO(w["data"]), StreamState(file_id=0))
+    batch = buf.to_batch()
+    np.savez(os.path.join(d, "batch.npz"), data=batch.data,
+             start_t=batch.start_t, end_t=batch.end_t,
+             file_ids=batch.file_ids, base_off=batch.base_off,
+             halo=batch.halo)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh2-rank", str(r),
+         d], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE) for r in range(MESH2_RANKS)]
+    try:
+        flat = []  # the flat sessions' results on the same global batch
+        for label, kw in MESH_PATHS:
+            sess = session(MatchSession, w, bloom_table=w["bloom_table"],
+                           **kw)
+            bm = sess.decode(batch, sess.scan(batch))
+            n, gc = sess.decode_counts(batch, sess.scan(batch))
+            flat.append((sorted((e.lane, e.file_id, e.end_offset, e.gid)
+                                for e in bm.events),
+                         (bm.total, bm.reported, bm.overflowed),
+                         np.concatenate([[n], gc])))
+        logs = []
+        for r, p in enumerate(procs):
+            try:
+                logs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"[mesh2] rank {r} did not finish in {MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            fail(f"[mesh2] rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for r in range(MESH2_RANKS):
+        with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+    launches = {f"rank{r}": {} for r in range(MESH2_RANKS)}
+    for p, (label, kw) in enumerate(MESH_PATHS):
+        want, (total, reported, over), counts = flat[p]
+        got = sorted(tuple(int(x) for x in e) for o in ranks
+                     for e in o[f"events_{p}"])
+        if got != want:
+            fail(f"[mesh2] {label}: {len(got)} events from the ranks, flat "
+                 f"{len(want)}")
+        totals = [o[f"totals_{p}"] for o in ranks]
+        rank_counts = [o[f"counts_{p}"] for o in ranks]
+        if kw:  # dense and device verify: global totals on every rank
+            ok = all(tuple(t) == (total, t[1], over) for t in totals) and all(
+                np.array_equal(c, counts) for c in rank_counts)
+        else:  # host verify: each rank's own; their sums
+            ok = sum(t[0] for t in totals) == total and np.array_equal(
+                sum(rank_counts), counts)
+        if not ok or sum(t[1] for t in totals) != reported:
+            fail(f"[mesh2] {label}: totals {totals}, counts differ from the "
+                 f"flat session's ({total}, {reported}, {over})")
+        needed = path_kernels(kw, w)
+        path_launches = []
+        for r, o in enumerate(ranks):
+            n = dict(zip(("sampled", "window_walk", "dense_walk"),
+                         (int(x) for x in o[f"launches_{p}"])))
+            if any(not n[k] for k in needed):
+                fail(f"[mesh2] rank {r} {label}: kernels of the path were "
+                     f"never launched ({n})")
+            path_launches.append({k: n[k] for k in needed})
+            for k in needed:
+                launches[f"rank{r}"][k] = launches[f"rank{r}"].get(k, 0) + n[k]
+        t = np.array([o[f"times_{p}"] for o in ranks])
+        print(f"[mesh2] {label}: {len(got)} events (union of "
+              f"{MESH2_RANKS} ranks) == the flat session's on the same "
+              f"{BATCH_LANES}-lane batch, totals and counts equal; launches "
+              f"per rank {path_launches}"
+              f"; scan + decode {', '.join(f'{x:.4f}' for x in t[:, 0])} ms "
+              f"a batch per rank; collectives "
+              f"{', '.join(f'{x:.4f}' for x in t[:, 1])} ms a batch by CUDA "
+              f"events, {', '.join(f'{x:.4f}' for x in t[:, 2])} ms host "
+              f"({int(t[0, 3])} all_reduce a batch, gloo, 2 ranks on cuda:0; "
+              f"{card_line})", flush=True)
+    counts = flat[1][2]  # the flat device-verify decode_counts
+    for r, o in enumerate(ranks):
+        if not np.array_equal(o["count"], counts):
+            fail(f"[mesh2] rank {r}: count step {o['count'][0]} events, "
+                 f"flat decode_counts {counts[0]}")
+    print(f"[mesh2] ShardedBloomCounter.count == flat decode_counts "
+          f"({int(counts[0])} events) on every rank; phase wall time "
+          f"{time.perf_counter() - t_phase:.2f} s ({card_line})", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh2-rank":
+        return mesh2_rank(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     import tpu_pattern_matching_torch
@@ -2046,6 +2432,11 @@ def main() -> None:
         phase_sentiment(torch, kernels, tmp, card_line)
         shards = phase_pshard(torch, bloom, kernels, MatchSession, workloads,
                               ush, tmp, card_line)
+        mesh_launches = {"mesh1": phase_mesh1(torch, kernels, MatchSession,
+                                              workloads, tmp, card_line)}
+        for rank, got in phase_mesh2(torch, MatchSession, workloads, tmp,
+                                     card_line).items():
+            mesh_launches[f"mesh2_{rank}"] = got
     # phase 11, last before the trace (why: the docstring)
     proto_times, proto_launches = phase_proto(torch, kernels, card_line)
     times.update(proto_times)
@@ -2072,6 +2463,10 @@ def main() -> None:
          # the scope of its bound_ms and plain_ms
          **({"call_ms": times[key]["call_ms"]}
             if "call_ms" in times[key] else {}),
+         # the kernel's launches on the mesh phases' paths (per run)
+         **({"mesh_launches": {run: got[key] for run, got in
+                               mesh_launches.items() if got.get(key)}}
+            if any(got.get(key) for got in mesh_launches.values()) else {}),
          **({"main_path": {
              k: main_times[key][k] for k in (
                  "label", "config", "shape", "max_abs_err", "ms", "plain_ms",

@@ -190,10 +190,14 @@ def test_unaligned_sizes_warn_like_reference(corpus, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], "item 11"),
+    # the 1-D mesh (item 11a) is ported; with --pat-shards it is the
+    # ("pat", "data") grid, item 11b, refused before any process group
+    pytest.param(["--mesh", "all", "--pat-shards", "2"], "item 11b",
+                 id="flags0-item 11"),
     # --pat-shards (item 10) is ported: the run equals the reference's
     pytest.param(["--pat-shards", "2"], None, id="flags1-item 10"),
-    (["--num-processes", "2"], "item 11"),
+    pytest.param(["--num-processes", "2", "--process-id", "0",
+                  "--pat-shards", "2"], "item 11b", id="flags2-item 11"),
 ])
 def test_not_ported_flags_exit_2(flags, item, corpus, capsys, monkeypatch):
     monkeypatch.chdir(corpus)
@@ -208,6 +212,91 @@ def test_not_ported_flags_exit_2(flags, item, corpus, capsys, monkeypatch):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and item in err
+
+
+@pytest.mark.parametrize("mode", ["byte", "ushort"])
+def test_mesh_all_equals_reference(mode, corpus, capsys, monkeypatch):
+    # --mesh all on one process: a 1-rank group, line for line the
+    # reference's mesh of every (virtual) device; -G 1024 gives both the
+    # same batches (the reference pads to 128 lanes a device)
+    monkeypatch.chdir(corpus)
+    if mode == "byte":
+        argv = ["-f", "all.txt", "-p", "p.txt", "-t", "--engine", "bloom"]
+    else:
+        (corpus / "sigs").write_text(SIGS)
+        (corpus / "flows").mkdir()
+        (corpus / "flows" / "10.0.0.1_444_10.0.0.2_443_tcp").write_text(
+            "7,40,32,287,32,106,196,9,5,5,5")
+        argv = ["-f", "flows", "-p", "sigs", "--ushort", "--engine",
+                "bloom"]
+    ref, port = both(argv + ["-B", "64", "-G", "1024", "-v", "-w", "1",
+                             "--json-stats", "--mesh", "all"], capsys)
+    assert port == ref
+    assert sum(ln.startswith("Pattern ") for ln in port) >= 2
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()  # the run's 1-rank group ended with it
+
+
+@pytest.mark.parametrize("mesh", ["2", "two"])
+def test_mesh_not_the_world_size_exits_2(mesh, corpus, capsys, monkeypatch):
+    # a rank drives one device, so --mesh N must be the world size (1 on
+    # one process): anything else exits 2 with a message, no traceback
+    monkeypatch.chdir(corpus)
+    with pytest.raises(SystemExit) as e:
+        port_main(["-f", "all.txt", "-p", "p.txt", "--mesh", mesh,
+                   "--device", "cpu"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert err.startswith(f"ERROR: --mesh {mesh}: ")
+    assert "Traceback" not in err
+    if mesh == "2":
+        assert "mesh size 2 is not the world size 1" in err
+
+
+def test_mesh_with_sharded_dump_exits_2(corpus, capsys, monkeypatch):
+    # a pattern-sharded filter on a mesh is the ("pat", "data") grid
+    from tpu_pattern_matching.core.dfa import compile_patterns
+    from tpu_pattern_matching.parallel.pshard import ShardedBloom
+
+    monkeypatch.chdir(corpus)
+    pats = [p for p in (corpus / "p.txt").read_bytes().split(b"\n") if p]
+    ShardedBloom.from_table(compile_patterns(pats), 2).save("sharded.npz")
+    with pytest.raises(SystemExit) as e:
+        port_main(["-f", "all.txt", "-p", "p.txt", "--engine", "bloom",
+                   "--load-bloom", "sharded.npz", "--mesh", "all",
+                   "--device", "cpu"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported" in err and "item 11b" in err
+
+
+def test_two_nccl_ranks_on_one_device_exit_2(capsys, monkeypatch, tmp_path):
+    # two ranks of one host on one CUDA device: NCCL refuses that layout,
+    # and the CLI exits 2 before any group exists (it never switches to
+    # gloo); the device identity check runs here against a stand-in for
+    # the other rank's published identity
+    import torch.distributed as dist
+
+    from tpu_pattern_matching_torch.parallel import mesh
+
+    store = dist.HashStore()
+    store.set("tpm_mesh/device/1", "host GPU 0")
+    with pytest.raises(mesh.DeviceConflict, match="one rank per CUDA"):
+        mesh.check_distinct_devices(store, 0, 2, "host GPU 0")
+    mesh.check_distinct_devices(store, 0, 2, "host GPU 1")
+
+    def conflict(*args, **kw):
+        raise mesh.DeviceConflict("rank 0 and rank(s) [1] are all on x")
+
+    monkeypatch.setattr(mesh, "init_distributed", conflict)
+    with pytest.raises(SystemExit) as e:
+        port_main(["-f", str(tmp_path), "-p", str(tmp_path), "--device",
+                   "cpu", "--num-processes", "2", "--process-id", "0",
+                   "--coordinator", "localhost:1"])
+    assert e.value.code == 2
+    assert "all on x" in capsys.readouterr().err
+    assert not dist.is_initialized()
 
 
 def test_sharded_bloom_dump_exits_2(corpus, capsys, monkeypatch):

@@ -515,3 +515,62 @@ def test_proto_probe_kernel_equals_plain(cuda):
                                      kind="grid", **geom)
     want = eb.probe_plain(data, bloom, mix1[:5], mix2[:5], **geom)
     assert torch.equal(got, want) and int(want.sum()) > 0
+
+
+def test_nccl_world_1_sessions_equal_flat(cuda):
+    # mesh="all" with no process group on a CUDA device: a 1-rank NCCL
+    # group; every mesh path equals the flat session and the oracle
+    import torch.distributed as dist
+
+    from tpu_pattern_matching_torch.parallel.mesh import owned_world
+
+    rng = np.random.RandomState(8)
+    pats = [bytes(rng.randint(0, 256, size=int(rng.randint(8, 16)))
+                  .astype(np.uint8)) for _ in range(100)]
+    data = bytearray(rng.randint(0, 256, size=1 << 18).astype(np.uint8))
+    for i, pos in enumerate(rng.randint(0, (1 << 18) - 16, size=150)):
+        p = pats[i % len(pats)]
+        data[pos : pos + len(p)] = p
+    data = bytes(data)
+    table = compile_patterns(pats)
+    off, pid, _total = NativeOracle(pats).match(data, cap=1 << 16)
+    want = sorted(zip(off.tolist(), pid.tolist()))
+    with owned_world():
+        for kw in (dict(), dict(verify="device"), dict(engine="dense")):
+            mesh = MatchSession(table, max_chunks=256, chunk_len=1024,
+                                device="cuda", mesh="all", **kw)
+            assert mesh._mesh_ctx.backend == "nccl"
+            assert mesh._mesh_ctx.device == torch.device("cuda", 0)
+            flat = MatchSession(table, max_chunks=256, chunk_len=1024,
+                                device=cuda, **kw)
+            assert mesh.find(data) == flat.find(data) == want
+    assert not dist.is_initialized()
+
+
+def test_two_nccl_ranks_on_one_device_exit_2(cuda, tmp_path):
+    # NCCL runs one rank per device: two ranks on device 0 exit 2 with a
+    # message before any group exists; they never switch to gloo
+    import os
+    import subprocess
+    import sys
+
+    (tmp_path / "p.txt").write_text("abc\n")
+    (tmp_path / "in.txt").write_text("xxabcxx\n")
+    url = f"file://{tmp_path / 'rendezvous'}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpu_pattern_matching_torch.cli", "-f",
+         str(tmp_path / "in.txt"), "-p", str(tmp_path / "p.txt"), "-D", "0",
+         "--num-processes", "2", "--process-id", str(r), "--coordinator",
+         url], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=repo)) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 2, err
+        assert "one rank per CUDA device" in err and "Pattern" not in out

@@ -46,6 +46,14 @@ def test_entry_equals_reference():
     assert bits.ndim == 2 and bits.shape[1] >= 16
 
 
+def test_dryrun_multichip_on_two_gloo_ranks(capsys):
+    # the checks of __graft_entry__.dryrun_multichip (its pat_shards=2
+    # block aside: item 11b) in 2 spawned ranks of a gloo group
+    port_entry.dryrun_multichip(2, device="cpu")
+    assert port_entry.main(["--device", "cpu", "--multichip", "1"]) == 0
+    assert "dryrun_multichip OK: 1 ranks" in capsys.readouterr().out
+
+
 def test_entry_main_runs_on_the_cpu(capsys):
     assert port_entry.main(["--device", "cpu"]) == 0
     assert capsys.readouterr().out.startswith("entry OK:")

@@ -17,6 +17,7 @@ from tests.fixtures import random_words_corpus
 from tpu_pattern_matching.core.dfa import AhoCorasick, compile_patterns
 from tpu_pattern_matching.core.oracle import match_python
 from tpu_pattern_matching.runtime.session import MatchSession as RefSession
+from tpu_pattern_matching_torch.runtime.buffers import StreamState
 from tpu_pattern_matching_torch.runtime.session import (
     MatchSession,
     session_for_patterns,
@@ -217,7 +218,10 @@ def test_precompiled_reference_filter_gives_same_events():
 @pytest.mark.parametrize("kw,item", [
     # pattern shards (item 10) are ported: the session runs them
     pytest.param(dict(pat_shards=2), None, id="kw0-item 10"),
-    (dict(mesh=2), "item 11"),
+    # the 1-D mesh (item 11a) is ported; with pattern shards it is the
+    # ("pat", "data") grid, item 11b
+    pytest.param(dict(mesh="all", pat_shards=2), "item 11b",
+                 id="kw1-item 11"),
 ])
 def test_unported_options_raise(kw, item):
     table = compile_patterns([b"abcd", b"bcde"])
@@ -232,11 +236,16 @@ def test_unported_options_raise(kw, item):
 
 def test_ushort_tables_raise():
     # ushort tables run every single-device path now
-    # (tests/test_torch_ushort.py); like byte tables, they raise only for
-    # the options not ported yet. Pattern shards need the bloom engine: a
-    # ushort table's "auto" is dense, which raises as in the reference
+    # (tests/test_torch_ushort.py) and the mesh (tests/test_torch_mesh.py);
+    # like byte tables, they raise only for the options not ported yet.
+    # Pattern shards need the bloom engine: a ushort table's "auto" is
+    # dense, which raises as in the reference
     table = compile_patterns([[1, 2000, 3], [5, 6]], alphabet_size=2048)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        MatchSession(table, device="cpu", engine="bloom", mesh="all",
+                     pat_shards=2)
+    with pytest.raises(ValueError, match="mesh size 2 is not the world "
+                       "size 1"):
         MatchSession(table, device="cpu", mesh=2)
     with pytest.raises(ValueError, match="bloom engine"):
         MatchSession(table, device="cpu", pat_shards=2)
@@ -245,6 +254,86 @@ def test_ushort_tables_raise():
         (3, 0), (5, 1)]
     assert MatchSession(table, device="cpu").find(b"7, 1, 2000, 3") == [
         (3, 0)]
+
+
+@pytest.fixture
+def world1():
+    """A 1-rank gloo world for this test (``mesh="all"`` makes it), gone
+    after it."""
+    from tpu_pattern_matching_torch.parallel.mesh import owned_world
+
+    with owned_world():
+        yield
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="bloom"), dict(engine="bloom", verify="device"),
+    dict(engine="dense", max_results=64),
+], ids=["bloom-host", "bloom-device", "dense"])
+@pytest.mark.parametrize("alphabet", [256, 2048])
+def test_mesh_at_world_1_equals_flat_session(world1, kw, alphabet):
+    # mesh="all" with no process group: a 1-rank group, every collective a
+    # real call; events, totals and counts equal the flat session's
+    rng = np.random.RandomState(alphabet)
+    if alphabet == 256:
+        pats = [rand_bytes(s, 7) for s in range(5)] + [b"abab"]
+        data = bytearray(rand_bytes(4, 20000))
+        for pos in range(30, 19900, 211):
+            data[pos : pos + 7] = pats[pos % 5]
+        data = bytes(data) + b"ab" * 300
+        table = compile_patterns(pats)
+    else:
+        pats = [[int(x) for x in rng.randint(0, 2048, size=4)]
+                for _ in range(5)]
+        seq = rng.randint(0, 2048, size=6000)
+        for pos in range(30, 5900, 97):
+            seq[pos : pos + 4] = pats[pos % 5]
+        data = ",".join(map(str, seq)).encode()
+        table = compile_patterns(pats, alphabet_size=2048)
+    mesh = MatchSession(table, max_chunks=16, chunk_len=64, device="cpu",
+                        mesh="all", **kw)
+    flat = MatchSession(table, max_chunks=mesh.max_chunks, chunk_len=64,
+                        device="cpu", **kw)
+    assert mesh._mesh_ctx.world_size == 1
+    assert mesh.local_chunks == mesh.max_chunks == (
+        128 if kw["engine"] == "bloom" else 16)
+    got = mesh.find(data)
+    assert got == flat.find(data) == sorted(match_python(pats, (
+        data if alphabet == 256 else seq.tolist())))
+    for a, b in zip(mesh.scan_stream(io.BytesIO(data)),
+                    flat.scan_stream(io.BytesIO(data))):
+        assert [vars(e) for e in a.events] == [vars(e) for e in b.events]
+        assert (a.total, a.reported, a.overflowed) == (
+            b.total, b.reported, b.overflowed)
+    buf = mesh.new_buffer()
+    buf.add_stream(io.BytesIO(data), StreamState(file_id=0))
+    batch = buf.to_batch()
+    n_m, gc_m = mesh.decode_counts(batch, mesh.scan(batch))
+    n_f, gc_f = flat.decode_counts(batch, flat.scan(batch))
+    assert n_m == n_f > 0
+    np.testing.assert_array_equal(gc_m, gc_f)
+
+
+def test_dense_keeps_every_slot_past_8192_tuples(world1):
+    # 512 lanes of 32 matches each: 16384 tuples in one batch. The
+    # reference keeps 8192 of them and flags the rest, so its find raises;
+    # the port's dense session keeps every result slot, flat and on a
+    # mesh at world 1 alike (ROADMAP queue 3)
+    table = compile_patterns([b"ab"])
+    data = b"ab" * (512 * 32)
+    kw = dict(max_chunks=512, chunk_len=64, engine="dense", max_results=64)
+    (ref,) = RefSession(table, **kw).scan_stream(io.BytesIO(data))
+    assert ref.overflowed and ref.reported == 8192 < ref.total == 16384
+    flat = MatchSession(table, device="cpu", **kw)
+    mesh = MatchSession(table, device="cpu", mesh="all", **kw)
+    (a,), (b,) = (s.scan_stream(io.BytesIO(data)) for s in (flat, mesh))
+    assert (a.total, a.reported, a.overflowed) == (16384, 16384, False)
+    assert (b.total, b.reported, b.overflowed) == (16384, 16384, False)
+    assert [vars(e) for e in a.events] == [vars(e) for e in b.events]
+    assert flat.find(data) == mesh.find(data) == sorted(
+        match_python([b"ab"], data))
+    with pytest.raises(RuntimeError, match="overflowed"):
+        RefSession(table, **kw).find(data)
 
 
 def test_cuda_request_never_runs_on_cpu():
@@ -298,6 +387,15 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "from tpu_pattern_matching_torch.entry import entry\n"
         "fn, args = entry('cpu')\n"
         "assert fn(*args)[0].shape == (1,)\n"
+        "from tpu_pattern_matching_torch.parallel import mesh\n"
+        "s = session_for_patterns(pats, max_chunks=4, chunk_len=64, "
+        "device='cpu', mesh='all', verify='device')\n"
+        "assert s._mesh_ctx.world_size == 1 and s.find(data) == got\n"
+        "import torch.distributed as dist\n"
+        "dist.destroy_process_group()\n"
+        "from tpu_pattern_matching_torch.entry import _dryrun_rank\n"
+        "_dryrun_rank(0, 1, 'unused', 'cpu')\n"
+        "assert not dist.is_initialized()\n"
         "from tpu_pattern_matching_torch.tools import fuzz_campaign\n"
         "assert fuzz_campaign.run_trial(1, 0, 'cpu')['arms']\n"
         "from tpu_pattern_matching_torch.ushort import compile_signatures\n"

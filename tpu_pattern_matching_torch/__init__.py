@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of ``tpu_pattern_matching`` for NVIDIA Hopper (H100).
 
 The JAX package beside this one is the reference; this package runs its
-single-device pipelines — the q-gram bloom probe with on-device exact-gram
-refinement and host or device verify, and the dense DFA engine, over byte
-lanes or uint16 packet-metadata lanes — with every kernel hand-written in
-CUDA under ``csrc/``, and is held to the reference bit for bit by
+pipelines — the q-gram bloom probe with on-device exact-gram refinement
+and host or device verify, and the dense DFA engine, over byte lanes or
+uint16 packet-metadata lanes, on one device or on a data-parallel mesh of
+``torch.distributed`` ranks — with every kernel hand-written in CUDA under
+``csrc/``, and is held to the reference bit for bit by
 ``tests/test_torch_*.py``.
 
 Layout mirrors the reference so each module's counterpart is easy to find:
@@ -14,10 +15,12 @@ Layout mirrors the reference so each module's counterpart is easy to find:
                 compaction, the CUDA kernel loader.
 - ``runtime`` — ``MatchSession`` (``engine="bloom"`` with
                 ``verify="host"`` or ``"device"``, ``engine="dense"``,
-                ``pat_shards``) and the ``--profile`` trace.
-- ``parallel`` — pattern shards on one device (``pshard``).
+                ``pat_shards``, ``mesh``) and the ``--profile`` trace.
+- ``parallel`` — pattern shards on one device (``pshard``) and the
+                data-parallel mesh on ``torch.distributed`` (``mesh``).
 - ``engine``  — the benchmark scan-total hook.
-- ``entry``   — the entry point of the forward probe step.
+- ``entry``   — the entry point of the forward probe step and the
+                multi-rank dry run (``dryrun_multichip``).
 - ``tools``   — the fuzz campaign.
 - ``ushort``  — the packet-metadata grep (``run_ushort_grep``).
 - ``cli``     — ``torch_aho_grep``, the reference CLI's surface.

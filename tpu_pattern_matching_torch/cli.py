@@ -2,10 +2,10 @@
 
     python -m tpu_pattern_matching_torch.cli -f INPUT -p PATTERNS [flags]
 
-Port of the reference's ``tpu_pattern_matching/cli.py`` (``tpu_aho_grep``),
-single process: the same flags, messages, exit codes, verbose lines
-("Pattern <id> ('<label>') found in file ..."), context echo and STATS
-block, so the apps that read its standard output work unchanged.
+Port of the reference's ``tpu_pattern_matching/cli.py`` (``tpu_aho_grep``):
+the same flags, messages, exit codes, verbose lines ("Pattern <id>
+('<label>') found in file ..."), context echo and STATS block, so the
+apps that read its standard output work unchanged.
 
   -f file(s)      input: a directory, a single file, or comma-separated files
   -p file         pattern file (one per line; auto-detected "ID PATTERN"
@@ -13,7 +13,8 @@ block, so the apps that read its standard output work unchanged.
   -B chunk_size   bytes per chunk lane
   -G global_ws    chunk lanes per batch (buffer = G * B bytes)
   -L local_ws     accepted for compatibility
-  -D devpos       CUDA device ordinal
+  -D devpos       CUDA device ordinal (default 0; on a mesh, rank r takes
+                  device r % count)
   -m max          truncate patterns to max bytes
   -w cpu_threads  feeder threads (round-robin over files, default 2)
   -R max          result slots per chunk (default 16)
@@ -26,6 +27,12 @@ block, so the apps that read its standard output work unchanged.
   --ushort        packet-metadata mode (signature files, flow files)
   --engine        auto | bloom | dense;  --verify auto | host | device
   --pat-shards S  partition the pattern set into S shard filters (bloom)
+  --mesh N|all    data-parallel mesh on torch.distributed: one lane shard
+                  per rank, N the world size (a 1-rank group when run alone)
+  --num-processes W --process-id p --coordinator host:port
+                  start rank p of a W-process mesh (implies --mesh all);
+                  each rank reads its own share of the files and prints
+                  its own matches, rank 0 prints the global STATS
   --sort, --sort-global, --save-dfa/--load-dfa, --save-bloom/--load-bloom
   (a pattern-sharded dump loads as one), --json-stats, --profile DIR (a
   torch.profiler Chrome trace of the run)
@@ -35,8 +42,20 @@ block, so the apps that read its standard output work unchanged.
 counterpart of the reference's ``JAX_PLATFORMS=cpu``) and is the only way
 onto the CPU: without a GPU, ``--device cuda`` exits with an error.
 
-Not ported yet (exit 2, naming the ROADMAP queue-1 item): ``--mesh`` and
-``--num-processes`` > 1.
+A two-process run on one host, e.g. on the CPU over gloo::
+
+    python -m tpu_pattern_matching_torch.cli -f DIR -p PATS -v \
+        --num-processes 2 --process-id 0 --coordinator localhost:29500 \
+        --device cpu &
+    python -m tpu_pattern_matching_torch.cli -f DIR -p PATS -v \
+        --num-processes 2 --process-id 1 --coordinator localhost:29500 \
+        --device cpu
+
+On CUDA devices the ranks run NCCL, one rank per device: two ranks on one
+device exit 2. ``--coordinator`` also takes a ``file:///path`` rendezvous.
+
+Not ported yet (exit 2, naming the ROADMAP queue-1 item): ``--mesh`` (or
+``--num-processes`` > 1) with ``--pat-shards`` > 1 (item 11b).
 
 ``check_args``, ``align_parameters``, ``raise_nofile_limit`` and
 ``compile_table`` are copies of the reference's: its module imports the
@@ -75,8 +94,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-B", dest="chunk_size", type=int, default=4096)
     ap.add_argument("-G", dest="global_ws", type=int, default=2048)
     ap.add_argument("-L", dest="local_ws", type=int, default=0)  # compat no-op
-    ap.add_argument("-D", dest="dev_pos", type=int, default=0,
-                    help="CUDA device ordinal")
+    ap.add_argument("-D", dest="dev_pos", type=int, default=None,
+                    help="CUDA device ordinal (default 0; on a mesh, rank r "
+                    "takes device r %% count)")
     ap.add_argument("-m", dest="pat_size_limit", type=int, default=-1)
     ap.add_argument("-w", dest="thread_no", type=int, default=2)
     ap.add_argument("-R", dest="max_results", type=int, default=16)
@@ -102,8 +122,15 @@ def build_argparser() -> argparse.ArgumentParser:
         "memory grows with the total match count; incompatible with -F, "
         "which never ends)",
     )
-    ap.add_argument("--mesh", default=None, metavar="N|all",
-                    help="not ported yet (ROADMAP queue 1, item 11)")
+    ap.add_argument(
+        "--mesh",
+        default=None,
+        metavar="N|all",
+        help="data-parallel mesh on torch.distributed: each rank scans "
+        "its own lane shard on its own device, the filter/DFA table "
+        "replicates and totals all-reduce; N must equal the world size "
+        "(a 1-rank group when run alone)",
+    )
     ap.add_argument(
         "--pat-shards",
         dest="pat_shards",
@@ -116,8 +143,18 @@ def build_argparser() -> argparse.ArgumentParser:
         "(the (pat, data) grid of --mesh is not ported yet). Bloom "
         "engine only",
     )
+    ap.add_argument(
+        "--coordinator",
+        default=None,
+        metavar="HOST:PORT",
+        help="multi-process rendezvous: rank 0's host:port (a TCP store) "
+        "or file:///path (run the same command in every process with its "
+        "--process-id)",
+    )
     ap.add_argument("--num-processes", type=int, default=1,
-                    help="not ported yet past 1 (ROADMAP queue 1, item 11)")
+                    help="multi-process: total number of processes (ranks)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="multi-process: this process's rank (0-based)")
     ap.add_argument(
         "--engine",
         choices=("auto", "bloom", "dense"),
@@ -276,18 +313,19 @@ def _not_ported(what: str, item: str) -> None:
 
 
 def check_not_ported(args) -> None:
-    """Exit 2, naming the ROADMAP item, for the multi-device flags."""
-    if args.mesh is not None:
-        _not_ported("--mesh", "item 11")
-    if args.num_processes > 1:
-        _not_ported("--num-processes > 1", "item 11")
+    """Exit 2, naming the ROADMAP item, for the ("pat", "data") grid."""
+    mesh = args.mesh is not None or args.num_processes > 1
+    if mesh and args.pat_shards > 1:
+        _not_ported("--mesh with --pat-shards > 1 (the (pat, data) grid)",
+                    "item 11b")
 
 
 def select_device(args) -> torch.device:
     """The run's device from ``--device`` and ``-D``; exits 2 (never falls
-    back) when it does not exist."""
+    back) when it does not exist. Without ``-D`` a CUDA device has no
+    ordinal: device 0, or on a mesh rank r's ``r % count``."""
     if args.device == "cpu":
-        if args.dev_pos != 0:
+        if args.dev_pos not in (None, 0):
             print(f"ERROR: device position {args.dev_pos} not available",
                   file=sys.stderr)
             sys.exit(2)
@@ -297,11 +335,94 @@ def select_device(args) -> torch.device:
               "(torch.cuda.is_available() is False); pass --device cpu to "
               "run the plain PyTorch path", file=sys.stderr)
         sys.exit(2)
+    if args.dev_pos is None:
+        return torch.device("cuda")
     if not 0 <= args.dev_pos < torch.cuda.device_count():
         print(f"ERROR: device position {args.dev_pos} not available",
               file=sys.stderr)
         sys.exit(2)
     return torch.device("cuda", args.dev_pos)
+
+
+def start_processes(args, device: torch.device) -> None:
+    """``--num-processes`` > 1: join the ranks' process group before any
+    device use (NCCL on CUDA devices, gloo on the CPU); the run is then a
+    mesh run. Exits 2 on a bad layout (no ``--process-id``, two NCCL ranks
+    on one device)."""
+    from tpu_pattern_matching_torch.parallel.mesh import (
+        DeviceConflict,
+        init_distributed,
+    )
+
+    if args.num_processes <= 1:
+        return
+    if args.process_id is None:
+        print("ERROR: --num-processes needs --process-id", file=sys.stderr)
+        sys.exit(2)
+    try:
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id, device=device)
+    except (DeviceConflict, ValueError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        sys.exit(2)
+    if args.mesh is None:
+        args.mesh = "all"  # a multi-process run IS a mesh run
+
+
+def mesh_spec(args):
+    """``--mesh`` as a session's ``mesh=``: "all", the world size, or
+    None. Exits 2 on any other value."""
+    from tpu_pattern_matching_torch.parallel.mesh import check_mesh_size
+
+    mesh = getattr(args, "mesh", None)  # library callers may not set it
+    if mesh is None:
+        return None
+    if mesh in ("all", "auto"):
+        return "all"
+    try:
+        return check_mesh_size(int(mesh))
+    except ValueError as e:
+        print(f"ERROR: --mesh {mesh}: {e}", file=sys.stderr)
+        sys.exit(2)
+
+
+def rank_batches(sess, feeder):
+    """The feeder's items, in lockstep rounds across the ranks of a
+    multi-process mesh (a rank whose files are done scans an empty batch
+    until every rank is done)."""
+    from tpu_pattern_matching_torch.parallel.mesh import lockstep
+    from tpu_pattern_matching_torch.runtime.feeder import FeedItem
+
+    ctx = sess._mesh_ctx
+    if ctx is None or ctx.world_size == 1:
+        return iter(feeder)
+    idle = FeedItem(batch=sess.new_buffer().to_batch(), lines=0, bytes=0)
+    return lockstep(feeder, ctx, idle)
+
+
+def batch_total(sess, bm) -> int:
+    """A batch's contribution to the STATS total: its total, except that a
+    total counted over every rank of the mesh is added by rank 0 only, so
+    the run-end sum over the ranks counts each event once."""
+    ctx = sess._mesh_ctx
+    return 0 if sess.global_totals and ctx.rank else bm.total
+
+
+def reduce_stats(sess, stats) -> bool:
+    """Sum the run's counters over the ranks of a multi-process mesh;
+    True on the rank that prints the STATS block (rank 0, or the only
+    process)."""
+    from tpu_pattern_matching_torch.parallel.mesh import allreduce_host_counts
+
+    ctx = sess._mesh_ctx
+    if ctx is None or ctx.world_size == 1:
+        return True
+    tot = allreduce_host_counts(np.asarray(
+        [stats.matches_total, stats.matches_reported, stats.bytes,
+         stats.lines, stats.rounds], np.int64), ctx)
+    (stats.matches_total, stats.matches_reported, stats.bytes, stats.lines,
+     stats.rounds) = (int(x) for x in tot)
+    return ctx.rank == 0
 
 
 def load_bloom(path: str):
@@ -317,7 +438,13 @@ def load_bloom(path: str):
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_argparser().parse_args(argv)
+    from tpu_pattern_matching_torch.parallel.mesh import owned_world
+
+    with owned_world():  # a process group this run made ends with it
+        return run(build_argparser().parse_args(argv))
+
+
+def run(args) -> int:
     raise_nofile_limit()
     check_args(args)
     align_parameters(args)
@@ -330,6 +457,7 @@ def main(argv: list[str] | None = None) -> int:
         pass
     check_not_ported(args)
     device = select_device(args)
+    start_processes(args, device)
 
     if args.ushort:
         from tpu_pattern_matching_torch.ushort import run_ushort_grep
@@ -344,6 +472,9 @@ def main(argv: list[str] | None = None) -> int:
         sys.exit(2)
 
     bloom_table = load_bloom(args.load_bloom) if args.load_bloom else None
+    if args.mesh is not None and getattr(bloom_table, "n_shards", 1) > 1:
+        _not_ported("--mesh with a pattern-sharded --load-bloom dump (the "
+                    "(pat, data) grid)", "item 11b")
 
     sess = MatchSession(
         table,
@@ -356,6 +487,7 @@ def main(argv: list[str] | None = None) -> int:
         device=device,
         bloom_table=bloom_table,
         pat_shards=args.pat_shards,
+        mesh=mesh_spec(args),
     )
     if args.save_bloom:
         if sess.engine == "bloom":
@@ -368,16 +500,19 @@ def main(argv: list[str] | None = None) -> int:
                 file=sys.stderr,
             )
 
+    ctx = sess._mesh_ctx
     feeder = Feeder(
         filenames,
         n_workers=args.thread_no,
-        max_chunks=sess.max_chunks,
+        # the session may round max_chunks up for mesh lane alignment; a
+        # rank assembles only its own lane shard from its own files
+        max_chunks=sess.local_chunks,
         chunk_len=args.chunk_size,
         halo=sess.halo,
         text_mode=args.text_mode,
         follow=args.follow,
-        process_id=0,
-        num_processes=1,
+        process_id=ctx.rank if ctx else 0,
+        num_processes=ctx.world_size if ctx else 1,
     )
 
     stats = RunStats(
@@ -423,7 +558,7 @@ def main(argv: list[str] | None = None) -> int:
         stats.rounds += 1
         stats.bytes += item.bytes
         stats.lines += item.lines
-        stats.matches_total += bm.total
+        stats.matches_total += batch_total(sess, bm)
         # "Matches reported" counts expanded pattern ids (one per pattern
         # in a co-terminating group), as the reference CLI does
         stats.matches_reported += sum(len(e.pattern_indices) for e in bm.events)
@@ -464,7 +599,7 @@ def main(argv: list[str] | None = None) -> int:
         # never produce.
         depth = 1 if args.follow else 2
         pending: deque = deque()
-        for item in feeder:
+        for item in rank_batches(sess, feeder):
             comp = sess.scan(item.batch)
             pending.append((item, comp))
             if len(pending) >= depth:
@@ -477,9 +612,12 @@ def main(argv: list[str] | None = None) -> int:
             print(lines)
     stats.wall_us = now_us() - start
 
-    print(stats.render())
-    if args.json_stats:
-        print(stats.to_json())
+    # each rank printed its own verbose lines (it alone read those files);
+    # rank 0 prints the global STATS block
+    if reduce_stats(sess, stats):
+        print(stats.render())
+        if args.json_stats:
+            print(stats.to_json())
     return 0
 
 

@@ -8,15 +8,22 @@ problem: 32 random patterns of 4-11 bytes (``RandomState(0)``) and 16
 lanes of ``halo + 64`` random bytes. On a CUDA device the step launches
 the probe kernel; on the CPU it runs the kernel's plain version.
 
-    python -m tpu_pattern_matching_torch.entry [--device cpu]
+    python -m tpu_pattern_matching_torch.entry [--device cpu] [--multichip N]
 
-The reference's ``dryrun_multichip`` (a step over a device mesh) waits for
-the multi-GPU port (ROADMAP queue 1, item 11).
+``dryrun_multichip(n_ranks, device)`` runs the checks of the reference's
+``dryrun_multichip`` on a ``torch.distributed`` mesh of ``n_ranks``
+spawned ranks (gloo on the CPU): bloom, dense and device-verify ``find``
+against the oracle, and the sharded scan step's shapes. Its pattern-shard
+block (``pat_shards=2``, the ("pat", "data") grid) waits for ROADMAP queue
+1, item 11b.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -62,15 +69,113 @@ def entry(device="cuda"):
     return forward, args
 
 
+DRYRUN_TIMEOUT_S = 300  # every rank of dryrun_multichip, start to end
+
+
+def _dryrun_rank(rank: int, world: int, url: str, device: str) -> None:
+    """One rank of ``dryrun_multichip`` (a spawned process)."""
+    import torch.distributed as dist
+
+    from tpu_pattern_matching_torch.core.dfa import compile_patterns
+    from tpu_pattern_matching_torch.core.oracle import match_python
+    from tpu_pattern_matching_torch.ops.table import DeviceTable
+    from tpu_pattern_matching_torch.parallel.mesh import (
+        init_distributed,
+        make_sharded_scan_step,
+        world_context,
+    )
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+    torch.set_num_threads(1)
+    init_distributed(url, world, rank, device=device)
+    try:
+        ctx = world_context(device)
+        patterns = [b"needle!", b"\xde\xad\xbe\xef", b"abcab"]
+        table = compile_patterns(patterns)
+        # each rank scans its own payload (one batch each, so the ranks'
+        # scans stay in step)
+        payload = (b"r%d " % rank + b"xx needle! xx" * 40
+                   + b"\xde\xad\xbe\xef" + b"abcabcab")
+        expect = sorted(match_python(patterns, payload))
+        for kw in (dict(engine="bloom"), dict(engine="dense"),
+                   dict(engine="bloom", verify="device")):
+            sess = MatchSession(table, max_chunks=4 * world, chunk_len=64,
+                                mesh=ctx, **kw)
+            if sess.max_chunks % world:
+                raise RuntimeError(f"{kw}: {sess.max_chunks} lanes")
+            got = sess.find(payload)
+            if got != expect:
+                raise RuntimeError(f"rank {rank} {kw}: {got} != {expect}")
+        # the per-group count-reduction step, on this rank's 4 lanes
+        table2, halo, data, start_t, end_t = small_problem(
+            num_lanes=4 * world)
+        dev = DeviceTable.put(table2, ctx.device)
+        step = make_sharded_scan_step(ctx, dev, halo=halo, max_results=16,
+                                      num_groups=table2.num_groups)
+        lanes = slice(4 * rank, 4 * rank + 4)
+        counts, _slot_state, _slot_pos, gcounts = step(
+            dev.table_flat, dev.state_gid,
+            *(torch.from_numpy(np.ascontiguousarray(a[lanes])).to(ctx.device)
+              for a in (data, start_t, end_t)))
+        if (tuple(counts.shape) != (4,)
+                or tuple(gcounts.shape) != (table2.num_groups,)):
+            raise RuntimeError(f"scan step shapes {tuple(counts.shape)}, "
+                               f"{tuple(gcounts.shape)}")
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n_ranks: int, device="cuda") -> None:
+    """The reference's multi-chip dry run on ``n_ranks`` spawned ranks of
+    a ``torch.distributed`` group (rendezvous in a temporary file; the
+    backend as ``parallel.mesh.init_distributed`` picks it: gloo on the
+    CPU, NCCL on CUDA devices, one rank per device): bloom (host verify),
+    dense and device-verify ``MatchSession(mesh=...).find`` against the
+    oracle on every rank, and the shapes of ``make_sharded_scan_step``'s
+    outputs. The reference's ``pat_shards=2`` block is skipped: the
+    ("pat", "data") grid waits for ROADMAP queue 1, item 11b. Raises
+    RuntimeError when a rank fails or ``DRYRUN_TIMEOUT_S`` seconds
+    pass."""
+    import multiprocessing
+
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="tpm_dryrun.") as tmp:
+        url = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [spawn.Process(target=_dryrun_rank,
+                               args=(r, n_ranks, url, str(device)))
+                 for r in range(n_ranks)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise RuntimeError(f"dryrun_multichip({n_ranks}): ranks {hung} "
+                           f"timed out after {DRYRUN_TIMEOUT_S} s; exit "
+                           f"codes {codes}")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--multichip", type=int, default=0, metavar="N",
+                    help="also run dryrun_multichip on N spawned ranks")
     a = ap.parse_args(argv)
     fn, args = entry(a.device)
     out = fn(*args)
     if out[0].is_cuda:
         torch.cuda.synchronize()
     print("entry OK:", [tuple(o.shape) for o in out])
+    if a.multichip:
+        dryrun_multichip(a.multichip, a.device)
+        print(f"dryrun_multichip OK: {a.multichip} ranks (the pat_shards=2 "
+              f"block waits for ROADMAP item 11b)")
     return 0
 
 

@@ -25,7 +25,10 @@ runs the reference's ``_verify_kernel`` stage by stage:
 capacities from the probe's exact total, retrying the refined-candidate
 and event capacities on the exact counts the pipeline reports. A batch of
 more than ``MAX_DEVICE_CAND`` candidates is verified in several passes,
-each over a range of whole lanes, so every batch stays on the device.
+each over a range of whole lanes, so every batch stays on the device. On
+a data-parallel mesh (``mesh=``, ``parallel/mesh.py``) each rank verifies
+its own lanes, and every dispatch's counts and flags are reduced over the
+ranks before the retry ladder reads them, so every rank retries together.
 
 The reference compacts with ``lax.top_k`` because a scatter is serialized
 on XLA:TPU; on the GPU a cumsum plus one scatter into a fixed capacity is
@@ -306,6 +309,18 @@ def lane_passes(bits, cap: int) -> list[tuple[int, int, int]]:
     return out
 
 
+def exact_table(gram_keys, cfg, table, device):
+    """The exact-gram table of ``gram_keys`` (``ops/exact_gram``) on
+    ``device``, or None (no refinement) when there are none."""
+    if gram_keys is None or not len(gram_keys):
+        return None
+    from .exact_gram import DeviceExact, table_from_keys
+
+    xt = table_from_keys(gram_keys, cfg.q,
+                         bits=(table.alphabet_size - 1).bit_length())
+    return DeviceExact.put(xt, cfg.fold_case, device)
+
+
 class DeviceVerifier:
     """Session-side wrapper: ships the dense table once, buckets capacities.
 
@@ -313,9 +328,16 @@ class DeviceVerifier:
     candidate capacity >= the probe's exact survivor total (so candidate
     overflow cannot happen), and retries the refined-candidate and event
     capacities on the exact counts reported back. The int16 table stays
-    int16 on the device."""
+    int16 on the device.
 
-    def __init__(self, table, cfg, halo: int, device, gram_keys=None):
+    ``mesh`` (a ``parallel.mesh.MeshContext``) verifies this rank's lanes
+    of a data-parallel mesh: every rank calls ``verify`` together with
+    the same ``total``, the probe's largest per-rank total, and each
+    dispatch is reduced (``parallel.mesh.reduce_verify``) before any retry
+    decision."""
+
+    def __init__(self, table, cfg, halo: int, device, gram_keys=None,
+                 mesh=None):
         self.table_flat = torch.from_numpy(
             np.ascontiguousarray(table.goto_signed).reshape(-1)).to(device)
         self.state_gid = torch.from_numpy(
@@ -326,28 +348,35 @@ class DeviceVerifier:
         self.stride = cfg.stride
         self.q = cfg.q
         self.halo = halo
+        self.mesh = mesh
         # exact-gram refinement: the filter's inserted gram set erases the
         # bloom false positives before the walk; None runs unrefined
-        self.exact = None
+        self.exact = exact_table(gram_keys, cfg, table, device)
         self._k_walk = 256  # sticky refined-capacity bucket
-        if gram_keys is not None and len(gram_keys):
-            from .exact_gram import DeviceExact, table_from_keys
-
-            xt = table_from_keys(
-                gram_keys, cfg.q,
-                bits=(table.alphabet_size - 1).bit_length())
-            self.exact = DeviceExact.put(xt, cfg.fold_case, device)
 
     def _dispatch(self, data, bounds, bits, k_cand: int, k_ev: int,
                   k_walk: int):
         """One pipeline run; ``meta`` comes back to the host (the one
-        sync of the dispatch), the rest stays on the device."""
+        sync of the dispatch), the rest stays on the device. ``meta =
+        [n_events, reported, n_cand, flags, n_exact, event need]``, the
+        need being the events of the rank that had the most. On a mesh
+        ``n_events`` and ``gcounts`` are summed over the ranks, ``n_cand``
+        and ``n_exact`` are the largest per rank and ``flags`` their OR;
+        ``reported`` and ``packed`` stay this rank's."""
         meta, packed, gcounts = verify_candidates(
             self.table_flat, self.state_gid, data, bounds, bits, self.exact,
             alphabet_size=self.alphabet_size, stride=self.stride, q=self.q,
             lmax=self.lmax, halo=self.halo, k_cand=k_cand, k_ev=k_ev,
             num_groups=self.num_groups, k_walk=k_walk,
         )
+        if self.mesh is None:
+            meta = torch.cat([meta, meta[:1]])
+        else:
+            from tpu_pattern_matching_torch.parallel.mesh import (
+                reduce_verify,
+            )
+
+            meta, gcounts = reduce_verify(self.mesh, meta, gcounts)
         return meta.cpu().numpy(), packed, gcounts
 
     def verify(self, data, bounds, bits, total: int):
@@ -358,9 +387,34 @@ class DeviceVerifier:
         bucketed candidate capacity still overflowed."""
         if total <= MAX_DEVICE_CAND:
             return self._verify_pass(data, bounds, bits, total)
+        # a rank's passes are its own (their number differs between
+        # ranks), so no collective runs inside one: the event total and
+        # the counts are reduced once, after them
+        mesh, self.mesh = self.mesh, None
+        try:
+            meta, packed, gc = self._lane_passes(data, bounds, bits)
+        finally:
+            self.mesh = mesh
+        if mesh is not None:
+            from tpu_pattern_matching_torch.parallel.mesh import (
+                allreduce_host_counts,
+            )
+
+            sums = allreduce_host_counts(
+                np.concatenate([meta[:1], gc]).astype(np.int64), mesh)
+            meta[0], gc = sums[0], sums[1:].astype(gc.dtype)
+        return meta, packed, gc
+
+    def _lane_passes(self, data, bounds, bits):
+        """``verify`` of this rank's batch in passes of whole lanes."""
         C = data.shape[0]
+        passes = lane_passes(bits, MAX_DEVICE_CAND)
+        if not passes:  # no candidate here (a mesh rank's lanes may hold
+            # none while another rank's pass the cap)
+            return (np.zeros(6, np.int32), np.zeros((3, 0), np.int32),
+                    np.zeros(self.num_groups, np.int32))
         metas, packs, gcs = [], [], []
-        for l0, l1, n in lane_passes(bits, MAX_DEVICE_CAND):
+        for l0, l1, n in passes:
             meta, packed, gc = self._verify_pass(
                 data[l0:min(l1, C)], bounds[:, l0:min(l1, C)].contiguous(),
                 bits[:, l0:l1], n)
@@ -388,7 +442,7 @@ class DeviceVerifier:
             meta, packed, gc = self._dispatch(data, bounds, bits, k_cand,
                                               k_ev, k_walk)
         if meta[3] & 2:  # event overflow: retry with the exact need
-            k_ev = next_cap(int(meta[0]))
+            k_ev = next_cap(int(meta[5]))
             meta, packed, gc = self._dispatch(data, bounds, bits, k_cand,
                                               k_ev, k_walk)
         if self.exact is not None:

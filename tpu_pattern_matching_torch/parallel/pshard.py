@@ -18,8 +18,9 @@ On the card the S probes are S launches of the same probe kernel into
 one bitmap, each ORing into the words of the one before, the last one
 counting the union's popcount (``ops.bloom.or_shards``); on the CPU the
 plain version ORs S plain probes. The reference's ("pat", "data") mesh
-(``Mesh2DContext`` and everything below it) waits for the multi-GPU port
-(ROADMAP queue 1, item 11).
+(``Mesh2DContext`` and everything below it) waits for the second half of
+the multi-GPU port (ROADMAP queue 1, item 11b); the 1-D data mesh is
+``parallel/mesh.py``.
 
 ``ShardedBloom`` dumps (``save``/``load``) use the reference's npz keys,
 so a dump written by either package loads in the other.

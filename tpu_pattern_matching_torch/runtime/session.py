@@ -30,8 +30,12 @@ one union bitmap on the device, which either verify stage walks as it
 walks one filter's. As in the reference, the union bitmap is not refined
 on the device: the host verifier walks it as probed.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue-1
-item): meshes.
+``mesh=`` (``parallel/mesh.py``) runs the bloom engine (host or device
+verify) and the dense engine on a ``torch.distributed`` data-parallel
+mesh: each rank owns one device and ``local_chunks`` lanes of the global
+batch, feeds and decodes only those, and the totals are reduced over the
+ranks. Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
+queue-1 item): ``mesh=`` with ``pat_shards > 1`` (item 11b).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from tpu_pattern_matching_torch.ops.compact import (
     CompactMatches,
     per_group_counts,
 )
+from tpu_pattern_matching_torch.parallel.mesh import MeshDenseMatches
 from tpu_pattern_matching_torch.utils.device import resolve_device
 
 
@@ -118,11 +123,13 @@ class MatchSession:
         ``engine``: "bloom" (q-gram bloom probe + exact verify), "dense"
         (the exact DFA walk of every lane on the device, with
         ``max_results`` result slots per lane and exact counts past
-        them), or "auto". The reference's "auto" is bloom for byte tables
-        on a TPU (``on_tpu()``) and dense elsewhere; here the card plays
-        the TPU's part, and "auto" is bloom for byte tables on any
-        device (the CPU runs the kernels' plain versions) and dense for
-        ushort tables, as in the reference.
+        them; every slot of a batch comes back, where the reference keeps
+        8192 tuples a batch, ROADMAP queue 3), or "auto". The reference's
+        "auto" is bloom for byte tables on a TPU (``on_tpu()``) and
+        dense elsewhere; here the card plays the TPU's part, and "auto"
+        is bloom for byte tables on any device (the CPU runs the
+        kernels' plain versions) and dense for ushort tables, as in the
+        reference.
 
         ``verify`` (bloom engine; "n/a" for dense): "host" (native window
         walker on the CPU), "device" (window walk on the device: exact
@@ -139,10 +146,24 @@ class MatchSession:
         pattern sets, where a single filter saturates. The S probes OR
         into one bitmap on the device, so decode and verify see one union
         bitmap and events are IDENTICAL to the unsharded engine's. Bloom
-        engine only; inferred from a precompiled ``ShardedBloom``."""
+        engine only; inferred from a precompiled ``ShardedBloom``.
+
+        ``mesh`` turns on the data-parallel path (``parallel/mesh.py``):
+        a ``MeshContext``, ``"all"``/``"auto"``/``True`` (the initialized
+        ``torch.distributed`` world, or a 1-rank group made here), or an
+        int equal to the world size. This rank runs on its own device
+        (``device``; ``"cuda"`` without an ordinal is ``cuda:(rank %
+        device_count)``) over its own ``local_chunks`` lanes, the filter
+        or table replicated. ``max_chunks`` is the GLOBAL batch, rounded
+        up to ``world * 128`` lanes (bloom) or ``world`` (dense). Events
+        are this rank's; ``BatchMatches.total`` is global where the
+        reference's is (dense, device verify) and this rank's with host
+        verify. Every rank must call ``scan``/``decode`` in lockstep (an
+        idle rank scans an empty batch). Not with ``pat_shards > 1``
+        (item 11b)."""
         from tpu_pattern_matching_torch.parallel.pshard import ShardedBloom
         from tpu_pattern_matching_torch.runtime.verify import Verifier
-        from tpu_pattern_matching_torch.utils.common import pad_halo
+        from tpu_pattern_matching_torch.utils.common import pad_halo, roundup
         from tpu_pattern_matching_torch.utils.debug import dprint
         from tpu_pattern_matching_torch.ops.bloom import (
             REFINE_HEADROOM,
@@ -166,8 +187,9 @@ class MatchSession:
             pat_shards = bloom_table.n_shards
         if pat_shards < 1:
             raise ValueError(f"pat_shards must be >= 1, got {pat_shards}")
-        if mesh is not None:
-            raise _not_ported("mesh=", "item 11")
+        if mesh is not None and pat_shards > 1:
+            raise _not_ported("mesh= with pat_shards > 1 (the ('pat', "
+                              "'data') grid)", "item 11b")
         if engine == "auto":
             engine = "bloom" if table.alphabet_size == 256 else "dense"
         if pat_shards > 1 and engine != "bloom":
@@ -180,7 +202,21 @@ class MatchSession:
         self.verify_mode = (
             "host" if verify == "auto" else verify
         ) if engine == "bloom" else "n/a"
-        self.device = resolve_device(device)
+        self._mesh_ctx = ctx = None
+        if mesh is not None:
+            from tpu_pattern_matching_torch.parallel.mesh import (
+                as_mesh_context,
+            )
+
+            ctx = self._mesh_ctx = as_mesh_context(mesh, device)
+            # a rank's lanes stay 128-aligned for the bloom bitmap's
+            # column -> lane mapping (parallel.mesh.check_lanes); dense
+            # lanes just divide evenly
+            max_chunks = roundup(max_chunks, ctx.world_size * (
+                128 if engine == "bloom" else 1))
+            self.device = ctx.device
+        else:
+            self.device = resolve_device(device)
         self.table = table
         self.max_chunks = max_chunks
         self.chunk_len = chunk_len
@@ -192,6 +228,7 @@ class MatchSession:
         # (their unrefined bitmap went to the host verifier)
         self.refine_overflows = 0
         self._bloom = self._verifier = self._dvf = self.dev = None
+        self._bloom_step = self._dense_step = None
         self.bloom_table = None
         self._groups = table.groups_as_lists()
         self._gid_of_pidset = {
@@ -201,8 +238,22 @@ class MatchSession:
             from tpu_pattern_matching_torch.ops.table import DeviceTable
 
             self.dev = DeviceTable.put(table, self.device)
-            dprint(1, "session: engine=dense chunks=%dx%d halo=%d device=%s",
-                   max_chunks, chunk_len, self.halo, self.device)
+            # every result slot of the rank's lanes, with or without a
+            # mesh: the reference's 8192-tuple cap is not kept (ROADMAP
+            # queue 3)
+            self._dense_capacity = self.local_chunks * max_results
+            if ctx is not None:
+                from tpu_pattern_matching_torch.parallel.mesh import (
+                    make_sharded_dense_step,
+                )
+
+                self._dense_step = make_sharded_dense_step(
+                    ctx, self.dev, halo=self.halo, max_results=max_results,
+                    num_groups=table.num_groups,
+                    capacity=self._dense_capacity)
+            dprint(1, "session: engine=dense chunks=%dx%d halo=%d device=%s "
+                   "mesh=%s", max_chunks, chunk_len, self.halo, self.device,
+                   ctx)
             return
         if bloom_table is not None:
             bft = bloom_table
@@ -213,6 +264,12 @@ class MatchSession:
             bft = BloomFilterTable.from_table(table, **(bloom_opts or {}))
         self.bloom_table = bft
         self._bloom = bft.put(self.device)
+        if ctx is not None:
+            from tpu_pattern_matching_torch.parallel.mesh import (
+                make_sharded_bloom_step,
+            )
+
+            self._bloom_step = make_sharded_bloom_step(ctx, self._bloom)
         if self.verify_mode == "device":
             from tpu_pattern_matching_torch.ops.verify_device import (
                 DeviceVerifier,
@@ -221,7 +278,8 @@ class MatchSession:
             # the verify stage refines its own candidates: the probe
             # attaches no refinement of its own
             self._dvf = DeviceVerifier(table, bft.cfg, self.halo,
-                                       self.device, gram_keys=bft.gram_keys)
+                                       self.device, gram_keys=bft.gram_keys,
+                                       mesh=ctx)
         else:
             self._verifier = Verifier(
                 [p.symbols for p in table.patterns],
@@ -231,14 +289,14 @@ class MatchSession:
                 fold_case=bft.cfg.fold_case,
                 dense_table=table,  # fast native window walker
             )
-            if (not isinstance(bft, ShardedBloom)
+            if (ctx is None and not isinstance(bft, ShardedBloom)
                     and bft.gram_keys is not None and len(bft.gram_keys)):
                 # refine the survivor bitmap on the device with the exact
                 # inserted gram set, so the host walks only true gram
                 # occurrences; the capacity comes from the chooser's
                 # modeled candidate rate with REFINE_HEADROOM slack. A
-                # sharded filter's union bitmap goes to the host as
-                # probed, as in the reference
+                # sharded filter's union bitmap, and a mesh's bitmap, go
+                # to the host as probed, as in the reference
                 batch_positions = max_chunks * (self.halo + chunk_len)
                 rate = bft.expected_cand_rate()
                 k_ref = next_cap(int(min(
@@ -248,37 +306,62 @@ class MatchSession:
                 self._bloom.attach_exact(bft.gram_keys, k_ref,
                                          bits=bft.gram_bits)
         dprint(1, "session: engine=bloom verify=%s pat_shards=%d "
-               "chunks=%dx%d halo=%d device=%s", self.verify_mode,
-               pat_shards, max_chunks, chunk_len, self.halo, self.device)
+               "chunks=%dx%d halo=%d device=%s mesh=%s", self.verify_mode,
+               pat_shards, max_chunks, chunk_len, self.halo, self.device,
+               ctx)
 
     # ------------------------------------------------------------- plumbing
+
+    @property
+    def local_chunks(self) -> int:
+        """Lanes THIS RANK feeds per batch: ``max_chunks`` without a mesh,
+        ``max_chunks // world`` on one (each rank assembles only its own
+        lane shard, from its own input files)."""
+        return self.max_chunks // (
+            self._mesh_ctx.world_size if self._mesh_ctx else 1)
+
+    @property
+    def global_totals(self) -> bool:
+        """Whether ``BatchMatches.total`` counts every rank's events (the
+        mesh's dense and device-verify paths) rather than this rank's."""
+        return self._mesh_ctx is not None and self.verify_mode != "host"
 
     def new_buffer(self) -> DataBuffer:
         """A batch buffer of this session's symbol width: the byte
         ``DataBuffer`` (binary or text) for byte tables, the token-parsing
-        ``UshortBuffer`` (flow text -> uint16 lanes) for ushort tables."""
+        ``UshortBuffer`` (flow text -> uint16 lanes) for ushort tables.
+        Sized to this rank's lanes (``local_chunks``)."""
         if self.table.alphabet_size != 256:
-            return UshortBuffer(self.max_chunks, self.chunk_len, self.halo)
-        return DataBuffer(self.max_chunks, self.chunk_len, self.halo)
+            return UshortBuffer(self.local_chunks, self.chunk_len, self.halo)
+        return DataBuffer(self.local_chunks, self.chunk_len, self.halo)
 
     def scan(self, batch: HostBatch):
         """Upload one batch (blocking) and run the device engine: probe +
         refinement (``BloomHits``; with device verify it keeps the
         uploaded arrays for the verify stage) or the dense walk +
-        compaction (``CompactMatches``)."""
+        compaction (``CompactMatches``). On a mesh ``batch`` is this
+        rank's lane shard, the probe's ``meta`` is ``[global total, max
+        per-rank total]`` and the dense step gives ``MeshDenseMatches``."""
         from tpu_pattern_matching_torch.ops.compact import scan_and_compact
 
         data = torch.from_numpy(batch.data).to(self.device)
         bounds = torch.from_numpy(
             np.stack([batch.start_t, batch.end_t])
         ).to(self.device)
+        if self._dense_step is not None:
+            return self._dense_step(data, bounds)
         if self.dev is not None:
             return scan_and_compact(
                 self.dev, data, bounds, halo=batch.halo,
-                max_results=self.max_results, sort=self.sort,
+                max_results=self.max_results,
+                capacity=self._dense_capacity, sort=self.sort,
                 chunk_len=self.chunk_len,
             )
-        h = self._bloom.hits(data, bounds)
+        if self._bloom_step is not None:
+            meta, bits = self._bloom_step(self._bloom.words, data, bounds)
+            h = BloomHits(meta=meta, bits=bits)
+        else:
+            h = self._bloom.hits(data, bounds)
         if self._dvf is not None:
             h.data, h.bounds = data, bounds
         return h
@@ -289,40 +372,45 @@ class MatchSession:
         exist."""
         if isinstance(comp, BloomHits):
             return self._decode_bloom(batch, comp)
+        if isinstance(comp, MeshDenseMatches):
+            return self._decode_dense_mesh(batch, comp)
         total, reported = (int(x) for x in comp.meta.cpu())
-        events = []
-        if reported:
-            # fetch a power-of-two bucket >= reported: the transfer stays
-            # proportional to the matches
-            bucket = 256
-            while bucket < reported:
-                bucket *= 2
-            lane, pos, _state, gid, _rep = (
-                comp.packed[:, : min(bucket, comp.packed.shape[1])]
-                .cpu().numpy()[:, :reported].tolist()
-            )
-            groups = self._groups
-            for ln, p, g in zip(lane, pos, gid):
-                pids = groups[g]
-                events.append(
-                    MatchEvent(
-                        file_id=int(batch.file_ids[ln]),
-                        end_offset=int(batch.base_off[ln]) + p,
-                        pattern_indices=pids,
-                        rep_index=pids[0],
-                        lane=ln,
-                        gid=g,
-                    )
-                )
-            if self.sort:
-                # canonical order (MATCHING.md "--sort semantics"), the
-                # same key as the bloom engine's
-                events.sort(key=lambda ev: (ev.file_id, ev.end_offset))
         return BatchMatches(
-            events=events,
+            events=self._dense_events(batch, comp.packed, reported),
             total=total,
             reported=reported,
             overflowed=total > reported,
+        )
+
+    def _dense_events(self, batch: HostBatch, packed, reported: int
+                      ) -> list[MatchEvent]:
+        """MatchEvents of the first ``reported`` compacted dense tuples
+        ``packed [5, K]`` (lane, pos, state, gid, rep_pid): one transfer
+        of a power-of-two bucket >= reported (proportional to the
+        matches), then the array-driven ``_events_from_arrays`` (a
+        tuple's ``pos`` is its end past the halo)."""
+        if not reported:
+            return []
+        bucket = 256
+        while bucket < reported:
+            bucket *= 2
+        lane, pos, _state, gid, _rep = (
+            packed[:, : min(bucket, packed.shape[1])].cpu().numpy()
+            [:, :reported].astype(np.int64))
+        return self._events_from_arrays(batch, lane, pos + batch.halo, gid)
+
+    def _decode_dense_mesh(self, batch: HostBatch,
+                           comp: MeshDenseMatches) -> BatchMatches:
+        """This rank's events from its own compacted tuples (lanes are
+        local already) in array form; the total is global, as in the
+        reference."""
+        g_total, g_rep, _l_total, l_rep = (int(x) for x in comp.metas.cpu())
+        events = self._dense_events(batch, comp.packed, l_rep)
+        return BatchMatches(
+            events=events,  # this rank's lanes
+            total=g_total,  # exact GLOBAL count (slot overflow included)
+            reported=len(events),
+            overflowed=g_total > g_rep,
         )
 
     def scan_and_decode(self, batch: HostBatch) -> BatchMatches:
@@ -398,6 +486,15 @@ class MatchSession:
             batch.data, lanes, rows, batch.halo, batch.start_t, batch.end_t
         )
 
+    def _device_verify(self, comp: BloomHits, total: int):
+        """The device verify stage of one batch: ``(meta, (lanes, ends,
+        states), gcounts)``. On a mesh every rank calls it together, with
+        the probe's largest per-rank total, and ``meta[0]`` (the events)
+        and ``gcounts`` are sums over the ranks."""
+        if self._mesh_ctx is not None:
+            total = int(comp.meta[1])
+        return self._dvf.verify(comp.data, comp.bounds, comp.bits, total)
+
     def _decode_bloom(self, batch: HostBatch, comp: BloomHits) -> BatchMatches:
         """Exact events of one batch: total, then (if not zero) the
         device verify stage's events, or the bitmap and the native window
@@ -405,14 +502,16 @@ class MatchSession:
         total = self._batch_total(comp)
         events = []
         if self._dvf is not None:
-            if total:
-                _meta, (ln_a, e_a, st_a), _gc = self._dvf.verify(
-                    comp.data, comp.bounds, comp.bits, total)
+            n_ev = 0
+            if total:  # on a mesh the global total: every rank verifies
+                meta, (ln_a, e_a, st_a), _gc = self._device_verify(comp,
+                                                                   total)
+                n_ev = int(meta[0])
                 gid_a = self.table.state_gid[st_a]
                 events = self._events_from_arrays(batch, ln_a, e_a, gid_a)
             return BatchMatches(
-                events=events,
-                total=len(events),
+                events=events,  # on a mesh, this rank's lanes
+                total=n_ev,  # on a mesh, every rank's
                 reported=len(events),
                 overflowed=False,
             )
@@ -457,17 +556,23 @@ class MatchSession:
         overflow. Device verify: the gcounts of the verify stage. Host
         verify: a bincount over the walker's verified rows; like
         ``decode``, it grows ``k_ref`` on a refinement overflow (the
-        reference grows it in ``decode`` only)."""
+        reference grows it in ``decode`` only).
+
+        On a mesh, the dense and device-verify counts come back reduced
+        over every rank (do not reduce them again); host verify counts
+        this rank's lanes (``parallel.mesh.allreduce_host_counts``)."""
         G = self.table.num_groups
         if isinstance(comp, CompactMatches):
             return int(comp.meta[0]), per_group_counts(
                 self.dev, comp).cpu().numpy().astype(np.int64)
+        if isinstance(comp, MeshDenseMatches):
+            return int(comp.metas[0]), comp.gcounts.cpu().numpy().astype(
+                np.int64)
         total = self._batch_total(comp)
         if not total:
             return 0, np.zeros(G, np.int64)
         if self._dvf is not None:
-            meta, _packed, gc = self._dvf.verify(comp.data, comp.bounds,
-                                                 comp.bits, total)
+            meta, _packed, gc = self._device_verify(comp, total)
             return int(meta[0]), gc.astype(np.int64)
         _rows, _lanes, arr = self._verify(batch, comp, total)
         if arr is None:

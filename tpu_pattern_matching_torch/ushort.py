@@ -11,7 +11,8 @@ the alphabet are clamped to ``alphabet - 1``.
 ``run_ushort_grep`` streams: flow text parses incrementally into uint16
 token lanes (``runtime.buffers.UshortBuffer``, shared with the reference) fed
 through the threaded feeder in rounds, and ``-F`` follow mode works on
-growing flow files and FIFOs.
+growing flow files and FIFOs. ``--mesh`` and ``--num-processes`` run it on
+the data-parallel mesh as they run the byte CLI.
 
 ``compile_signatures`` and ``lanes_from_sequences`` are copies of the
 reference's: its module imports the JAX session at its top.
@@ -96,7 +97,17 @@ def run_ushort_grep(args, device) -> int:
     ``dense`` walks the DFA on the device. "auto" is bloom on a CUDA
     device and dense elsewhere (the reference: bloom on a TPU);
     ``--pat-shards`` > 1 forces bloom (S shard filters, one union
-    bitmap)."""
+    bitmap). On a mesh (``--mesh``, or the process group the CLI joined
+    for ``--num-processes``) each rank reads its own share of the flow
+    files, the ranks scan in lockstep rounds and rank 0 prints the global
+    STATS, as in the byte CLI."""
+    from tpu_pattern_matching_torch.cli import (
+        batch_total,
+        mesh_spec,
+        rank_batches,
+        reduce_stats,
+    )
+
     engine = getattr(args, "engine", "auto")
     if engine == "auto":
         engine = "bloom" if device.type == "cuda" else "dense"
@@ -121,17 +132,19 @@ def run_ushort_grep(args, device) -> int:
         verify=getattr(args, "verify", "auto"),
         device=device,
         pat_shards=pat_shards,
+        mesh=mesh_spec(args),
     )
+    ctx = sess._mesh_ctx
     feeder = Feeder(
         filenames,
         n_workers=args.thread_no,
-        max_chunks=sess.max_chunks,
+        max_chunks=sess.local_chunks,
         chunk_len=B,
         halo=sess.halo,
         follow=getattr(args, "follow", False),
         buffer_factory=UshortBuffer,
-        process_id=0,
-        num_processes=1,
+        process_id=ctx.rank if ctx else 0,
+        num_processes=ctx.world_size if ctx else 1,
     )
 
     stats = RunStats(
@@ -144,8 +157,9 @@ def run_ushort_grep(args, device) -> int:
     def consume(item, comp):
         bm = sess.decode(item.batch, comp)
         stats.rounds += 1
-        stats.bytes += item.batch.payload_bytes * 2  # uint16 tokens
-        stats.matches_total += bm.total
+        if item.batch.chunks:  # not a mesh rank's idle round
+            stats.bytes += item.batch.payload_bytes * 2  # uint16 tokens
+        stats.matches_total += batch_total(sess, bm)
         stats.matches_reported += sum(
             len(e.pattern_indices) for e in bm.events
         )
@@ -182,14 +196,15 @@ def run_ushort_grep(args, device) -> int:
     # for the NEXT batch, which a quiet stream may never produce
     depth = 1 if getattr(args, "follow", False) else 2
     pending: deque = deque()
-    for item in feeder:
+    for item in rank_batches(sess, feeder):
         pending.append((item, sess.scan(item.batch)))
         if len(pending) >= depth:
             consume(*pending.popleft())
     while pending:
         consume(*pending.popleft())
     stats.wall_us = now_us() - start
-    print(stats.render())
-    if getattr(args, "json_stats", False):
-        print(stats.to_json())
+    if reduce_stats(sess, stats):
+        print(stats.render())
+        if getattr(args, "json_stats", False):
+            print(stats.to_json())
     return 0
