@@ -106,6 +106,25 @@ Phases (any failure exits non-zero at once):
               equals the flat ``decode_counts``, and each rank's launch
               counts show the path's kernels; a rank's failure, or one
               that runs past MESH_TIMEOUT_S, fails the script;
+10e. grid2 — the ("pat", "data") grid (``parallel.pshard.Mesh2DContext``):
+              two gloo ranks on cuda:0, spawned as ``chip_smoke.py
+              --grid2-rank R DIR``, holding the 2 shards of the bench
+              workload's filter over one column of the full 4096 lanes:
+              its 64 MiB through ``MatchSession(mesh=grid)`` with host and
+              device verify (the leader's ``find`` equals the oracle's,
+              the follower's is empty; batch by batch the leader's
+              events, totals and counts equal the flat ``pat_shards=2``
+              session's in this process, the follower's totals and
+              counts are 0 or the global ones; the broadcast, the
+              ``all_gather``s, the ``all_reduce``s and the leader's row
+              gather in ms a batch by CUDA events and on the host), the
+              count step (``global_pattern_counts`` of its ``gcounts``
+              equal the oracle's per-pattern counts), and the probe step
+              of the 300,000-pattern point of
+              ``benchmarks/bench_pshard.py`` in 2 shards (the union bitmap
+              equals the flat ``sharded_hits``, bit for bit); each rank's
+              launch counts show K1 or K2 once a batch and W2 per
+              dispatch;
 11. proto   — the prototype probes of the reference's
               ``benchmarks/exp_bloom.py`` (K4, one tile [286, 512]; K5, the
               grid [58368, 1024] of 128 tiles with their pad rows), each
@@ -133,11 +152,12 @@ Phases (any failure exits non-zero at once):
               session thins the traces after it);
 14. no jax  — the port never imported jax nor the JAX package.
 
-Each of phases 3-9, 10b, 10c, 10d (in each rank) and 11 sets every
-launch count to 0 before its path and reads them after it; each fails
-unless the kernels of its path were launched. Each of phases 7-9, 10b,
-10c, 10d and 11 prints its wall time. The summary gives each kernel's
-launches on the mesh paths (``mesh_launches``).
+Each of phases 3-9, 10b, 10c, 10d and 10e (in each rank) and 11 sets
+every launch count to 0 before its path and reads them after it; each
+fails unless the kernels of its path were launched. Each of phases 7-9,
+10b-10e and 11 prints its wall time. The summary gives each kernel's
+launches on the mesh and grid paths (``mesh_launches``) and the grid
+ranks' launches (``grid_launches``).
 The last lines are the card's name and power limit, a JSON line with the
 per-kernel summary (every kernel at each symbol width, with its bound,
 share and, for the probes, its numbers on the main path's inputs), and
@@ -2042,35 +2062,57 @@ def path_kernels(kw, w) -> tuple:
 
 
 class CollectiveTimer:
-    """Times every ``all_reduce`` of a mesh context while it is installed:
-    device ms by CUDA events on the current stream around each call (for
-    NCCL, its kernel; for gloo with CUDA tensors, the copies and the wait
-    for the host reduce), and host ms of the calls."""
+    """Times the collectives of mesh contexts while it is installed: device
+    ms by CUDA events on the current stream around each call (for NCCL,
+    its kernel; for gloo with CUDA tensors, the copies and the wait for
+    the host), and host ms of the calls. ``targets`` are ``(label, object,
+    method name)``, every ``all_reduce`` of ``ctx`` by default; a call
+    made inside another timed call counts in both labels."""
 
-    def __init__(self, torch, ctx):
-        self.torch, self.ctx = torch, ctx
-        self.pairs, self.host_s = [], 0.0
-        orig = ctx.all_reduce
+    def __init__(self, torch, ctx, targets=None):
+        self.torch = torch
+        self.targets = targets or [("all_reduce", ctx, "all_reduce")]
+        self.pairs, self.host_s, self.originals = {}, {}, []
+        for label, obj, name in self.targets:
+            orig = getattr(obj, name)
+            self.originals.append((obj, name, orig))
+            setattr(obj, name, self._timed(label, orig))
 
-        def timed(t, op="sum"):
+    def _timed(self, label, orig):
+        torch = self.torch
+
+        def timed(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             t0 = time.perf_counter()
-            out = orig(t, op)
-            self.host_s += time.perf_counter() - t0
+            out = orig(*args, **kw)
+            self.host_s[label] = (self.host_s.get(label, 0.0)
+                                  + time.perf_counter() - t0)
             stop.record()
-            self.pairs.append((start, stop))
+            self.pairs.setdefault(label, []).append((start, stop))
             return out
 
-        ctx.all_reduce = timed  # shadows the method until close()
+        return timed
+
+    def close_labels(self) -> dict:
+        """{label: (device ms, host ms, calls)} of the calls timed; the
+        methods are restored."""
+        for obj, name, orig in self.originals:
+            if isinstance(obj, types.ModuleType):
+                setattr(obj, name, orig)
+            else:  # the instance attribute shadowed the method
+                delattr(obj, name)
+        self.torch.cuda.synchronize()
+        return {label: (sum(a.elapsed_time(b) for a, b in pairs),
+                        self.host_s[label] * 1e3, len(pairs))
+                for label, pairs in self.pairs.items()}
 
     def close(self) -> tuple[float, float, int]:
-        """(device ms, host ms, calls) of the collectives timed."""
-        del self.ctx.all_reduce
-        self.torch.cuda.synchronize()
-        return (sum(a.elapsed_time(b) for a, b in self.pairs),
-                self.host_s * 1e3, len(self.pairs))
+        """(device ms, host ms, calls) of every collective timed."""
+        got = self.close_labels().values()
+        return (sum(g[0] for g in got), sum(g[1] for g in got),
+                sum(g[2] for g in got))
 
 
 def find_ms(torch, sess, w, label) -> float:
@@ -2382,11 +2424,358 @@ def phase_mesh2(torch, MatchSession, workloads, tmp, card_line) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- grid phase
+
+GRID2_RANKS = 2  # phase grid2: 2 gloo ranks on MESH_DEVICE, S = 2, D = 1
+GRID_SHARDS = 2
+# benchmarks/bench_pshard.py's point (:73-85): 300,000 random 12-byte
+# patterns (RandomState 42), here in the grid's 2 shards, probe only
+GRID_DEPLOY = 300_000
+GRID_TIMED = ("broadcast", "all_gather", "all_reduce", "row gather")
+
+
+def host_batches(sess, data: bytes):
+    """The batches ``sess.scan_stream`` would scan, one at a time (each is
+    the buffer's own arrays: use it before asking for the next)."""
+    from tpu_pattern_matching_torch.runtime.buffers import StreamState
+
+    buf, fobj, stream = sess.new_buffer(), io.BytesIO(data), StreamState(0)
+    while True:
+        code, rd = buf.add_stream(fobj, stream)
+        eof = rd == 0 and code != -1
+        if eof:
+            buf.finalize_stream(stream)
+        if buf.chunks and (code == -1 or eof):
+            yield buf.to_batch()
+            buf.reset()
+        if eof:
+            return
+
+
+def grid_events(bm) -> list:
+    return sorted((e.lane, e.file_id, e.end_offset, e.gid,
+                   *(int(p) for p in e.pattern_indices)) for e in bm.events)
+
+
+def grid_timer(torch, grid, pshard):
+    """A ``CollectiveTimer`` of the grid's collectives: the column's
+    broadcast (the batch) and ``all_gather`` (bitmaps, and the event rows'
+    lengths and rows), every ``all_reduce`` (column, row, world), and the
+    row gather to the leader (``gather_varlen`` in ``verify_rows``)."""
+    return CollectiveTimer(torch, None, [
+        ("broadcast", grid.col, "broadcast"),
+        ("all_gather", grid.col, "all_gather"),
+        ("all_reduce", grid.col, "all_reduce"),
+        ("all_reduce", grid.row, "all_reduce"),
+        ("all_reduce", grid.world, "all_reduce"),
+        ("row gather", pshard, "gather_varlen")])
+
+
+def grid2_rank(rank: int, tmp: str) -> None:
+    """One rank of phase grid2 (``chip_smoke.py --grid2-rank R DIR``): a
+    gloo rank on cuda:0 in the grid of 2 shards and 1 column. Runs the
+    bench point's 64 MiB through host and device verify (timed finds,
+    then per batch ``decode`` and ``decode_counts``) and the count step,
+    and the 300k point's probe step; reads its launch counts and times
+    the collectives; writes ``DIR/rank<R>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_pattern_matching_torch.core.dfa import DfaTable
+    from tpu_pattern_matching_torch.ops import kernels
+    from tpu_pattern_matching_torch.parallel import mesh, pshard
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+    mesh.init_distributed(f"file://{tmp}/rendezvous", GRID2_RANKS, rank,
+                          backend="gloo", device=MESH_DEVICE)
+    grid = pshard.Mesh2DContext.build(mesh.world_context(MESH_DEVICE),
+                                      GRID_SHARDS)
+    table = DfaTable.load(os.path.join(tmp, "table.npz"))
+    sb = pshard.ShardedBloom.load(os.path.join(tmp, "sharded.npz"))
+    with open(os.path.join(tmp, "data.bin"), "rb") as f:
+        data = f.read()
+    probe = "sampled" if sb.cfg.sampled else "strided"
+    out = {}
+    for p, verify in enumerate(("host", "device")):
+        sess = MatchSession(table, max_chunks=BATCH_LANES,
+                            chunk_len=CHUNK_LEN, mesh=grid, bloom_table=sb,
+                            verify=verify)
+        if sess.local_chunks != BATCH_LANES:
+            raise RuntimeError(f"{verify}: {sess.local_chunks} lanes")
+        sess.find(data[: 1 << 20])  # warm-up
+        reset(kernels)
+        timer = grid_timer(torch, grid, pshard)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        found = sess.find(data)
+        torch.cuda.synchronize()
+        find_ms = (time.perf_counter() - t0) * 1e3
+        times = timer.close_labels()
+        out[f"launches_{p}"] = np.array(
+            [kernels.launches[k] for k in (probe, "window_walk")])
+        out[f"find_{p}"] = np.array(found, np.int64).reshape(-1, 2)
+        out[f"find_ms_{p}"] = np.array(find_ms)
+        out[f"times_{p}"] = np.array([times.get(k, (0.0, 0.0, 0))
+                                      for k in GRID_TIMED])
+        for i, batch in enumerate(host_batches(sess, data)):
+            bm = sess.decode(batch, sess.scan(batch))
+            n, gc = sess.decode_counts(batch, sess.scan(batch))
+            out[f"events_{p}_{i}"] = np.array(json.dumps(grid_events(bm)))
+            out[f"totals_{p}_{i}"] = np.array([bm.total, bm.reported,
+                                               bm.overflowed])
+            out[f"counts_{p}_{i}"] = np.concatenate([[n], gc])
+            out["batches"] = np.array(i + 1)
+    # the count step, batch by batch, against this rank's shard table
+    s = grid.pat_index
+    bloom = sb.put_shard(s, grid.world.device)
+    tab = pshard.shard_table(table, sb.parts[s])
+    step = pshard.make_pattern_sharded_count_step(
+        grid, bloom, tab, halo=sess.halo,
+        shard_gram_keys=sb.shard_gram_keys)
+    flat, gids = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        grid.world.device) for a in (tab.goto_signed.reshape(-1),
+                                     tab.state_gid.astype(np.int32)))
+    gcounts = None
+    reset(kernels)
+    for batch in host_batches(sess, data):
+        d = torch.from_numpy(batch.data).to(grid.world.device)
+        b = torch.from_numpy(np.stack([batch.start_t, batch.end_t])).to(
+            grid.world.device)
+        gc, _n_ev, flags = step(bloom.words, flat, gids, d, b)
+        if flags.any():
+            raise RuntimeError(f"count step flags {flags.tolist()}")
+        gcounts = gc if gcounts is None else gcounts + gc
+    out["count_launches"] = np.array(
+        [kernels.launches[k] for k in (probe, "window_walk")])
+    out["gcounts"] = gcounts.cpu().numpy()
+    # the 300k point: the probe step on one random batch
+    big = pshard.ShardedBloom.load(os.path.join(tmp, "big.npz"))
+    with np.load(os.path.join(tmp, "big_batch.npz")) as z:
+        d, b = (torch.from_numpy(z[k]).to(grid.world.device)
+                for k in ("data", "bounds"))
+    bbig = big.put_shard(s, grid.world.device)
+    bstep = pshard.make_pattern_sharded_bloom_step(grid, bbig)
+    big_probe = "sampled" if big.cfg.sampled else "strided"
+    bstep(bbig.words, d, b)  # warm-up
+    reset(kernels)
+    meta, union = bstep(bbig.words, d, b)
+    out["big_launches"] = np.array(kernels.launches[big_probe])
+    out["big_meta"], out["big_union"] = meta.cpu().numpy(), union.cpu().numpy()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        bstep(bbig.words, d, b)
+    stop.record()
+    torch.cuda.synchronize()
+    out["big_ms"] = np.array(start.elapsed_time(stop) / 10)
+    imported = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "tpu_pattern_matching")]
+    if imported:
+        raise RuntimeError(f"imported {imported}")
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def phase_grid2(torch, MatchSession, workloads, tmp, card_line) -> dict:
+    """The ("pat", "data") grid on one card: two gloo ranks on cuda:0
+    (spawned ``chip_smoke.py --grid2-rank``), S = 2 shards of one column
+    of the full 4096 lanes. The leader's events (``find``, and batch by
+    batch with totals and counts) equal the flat ``pat_shards=2`` session's
+    in this process and the oracle's; the follower returns none, its
+    totals 0 (host verify) or the global ones (device verify); the count
+    step's ``global_pattern_counts`` equal the oracle's per-pattern
+    counts; the 300k point's union bitmap equals the flat
+    ``sharded_hits`` of the same shards, bit for bit; each rank's launch
+    counts show K1/K2 once a batch and W2 per dispatch. Prints the
+    collectives' ms a batch. Returns the ranks' launch counts."""
+    import subprocess
+
+    from tpu_pattern_matching_torch.parallel.pshard import (
+        ShardedBloom,
+        global_pattern_counts,
+        shard_table,
+        sharded_hits,
+    )
+
+    t_phase = time.perf_counter()
+    w = workloads[0]
+    d = os.path.join(tmp, "grid2")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    sb = ShardedBloom.from_table(w["table"], GRID_SHARDS)
+    build_s = time.perf_counter() - t0
+    sb.save(os.path.join(d, "sharded.npz"))
+    w["table"].save(os.path.join(d, "table.npz"))
+    with open(os.path.join(d, "data.bin"), "wb") as f:
+        f.write(w["data"])
+    rng = np.random.RandomState(42)
+    pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
+            for _ in range(GRID_DEPLOY)]
+    t0 = time.perf_counter()
+    big = ShardedBloom.build(pats, GRID_SHARDS, objective="probe")
+    big_s = time.perf_counter() - t0
+    del pats
+    big.save(os.path.join(d, "big.npz"))
+    halo = 16  # pad_halo(12 - 1, 4096)
+    B = CHUNK_LEN + (-(halo + CHUNK_LEN)) % big.cfg.tile_rows
+    drng = np.random.RandomState(7)
+    big_data = drng.randint(0, 256, size=(BATCH_LANES, halo + B)).astype(
+        np.uint8)
+    big_bounds = np.stack([np.full(BATCH_LANES, halo, np.int32),
+                           np.full(BATCH_LANES, halo + B, np.int32)])
+    np.savez(os.path.join(d, "big_batch.npz"), data=big_data,
+             bounds=big_bounds)
+    print(f"[grid2] bench workload in {GRID_SHARDS} shards: "
+          f"{cfg_name(sb.cfg)}, build {build_s:.2f} s; {GRID_DEPLOY} "
+          f"patterns in {GRID_SHARDS} shards (objective probe): "
+          f"{cfg_name(big.cfg)}, build {big_s:.2f} s on the card's host",
+          flush=True)
+    # the flat pat_shards=2 sessions' finds, timed before the ranks start
+    flat_sessions = [session(MatchSession, w, bloom_table=sb, verify=v)
+                     for v in ("host", "device")]
+    flat_ms = [find_ms(torch, f, w, "grid2 flat") for f in flat_sessions]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--grid2-rank", str(r),
+         d], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE) for r in range(GRID2_RANKS)]
+    try:
+        flat = []  # the flat pat_shards=2 sessions on the same batches
+        for sess in flat_sessions:
+            per = []
+            for batch in host_batches(sess, w["data"]):
+                bm = sess.decode(batch, sess.scan(batch))
+                n, gc = sess.decode_counts(batch, sess.scan(batch))
+                per.append((grid_events(bm), (bm.total, bm.reported,
+                                              bm.overflowed),
+                            np.concatenate([[n], gc])))
+            flat.append(per)
+        tabs = [shard_table(w["table"], part) for part in sb.parts]
+        dev = torch.device(MESH_DEVICE)
+        bd, bb = (torch.from_numpy(a).to(dev) for a in (big_data,
+                                                        big_bounds))
+        want_union = sharded_hits(bd, bb, torch.from_numpy(big.words).to(
+            dev), big.cfg)
+        logs = []
+        for r, p in enumerate(procs):
+            try:
+                logs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"[grid2] rank {r} did not finish in {MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            fail(f"[grid2] rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for r in range(GRID2_RANKS):
+        with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+    batches = int(ranks[0]["batches"])
+    if batches != len(flat[0]):
+        fail(f"[grid2] {batches} batches, flat {len(flat[0])}")
+    probe = "sampled" if sb.cfg.sampled else "strided"
+    launches = {f"rank{r}": {} for r in range(GRID2_RANKS)}
+    want = np.array(w["want"], np.int64).reshape(-1, 2)
+    for p, verify in enumerate(("host", "device")):
+        for r, o in enumerate(ranks):
+            if not np.array_equal(o[f"find_{p}"], want if r == 0 else
+                                  want[:0]):
+                fail(f"[grid2] {verify} verify: rank {r}'s find gave "
+                     f"{len(o[f'find_{p}'])} events, oracle {len(want)}")
+        for i, (events, (total, reported, over), counts) in enumerate(
+                flat[p]):
+            lead, fol = (json.loads(str(o[f"events_{p}_{i}"]))
+                         for o in ranks)
+            if lead != [list(e) for e in events] or fol:
+                fail(f"[grid2] {verify} verify, batch {i}: leader "
+                     f"{len(lead)} events, follower {len(fol)}, flat "
+                     f"{len(events)}")
+            t_lead, t_fol = (tuple(o[f"totals_{p}_{i}"]) for o in ranks)
+            c_lead, c_fol = (o[f"counts_{p}_{i}"] for o in ranks)
+            follower = ((total, 0, 0), counts) if verify == "device" else (
+                (0, 0, 0), np.zeros_like(counts))
+            if (t_lead != (total, reported, over)
+                    or not np.array_equal(c_lead, counts)
+                    or t_fol != follower[0]
+                    or not np.array_equal(c_fol, follower[1])):
+                fail(f"[grid2] {verify} verify, batch {i}: totals "
+                     f"{t_lead}/{t_fol}, flat {(total, reported, over)}")
+        path_launches = []
+        for r, o in enumerate(ranks):
+            n = dict(zip((probe, "window_walk"),
+                         (int(x) for x in o[f"launches_{p}"])))
+            needed = (probe, "window_walk") if verify == "device" else (
+                probe,)
+            if n[probe] != batches or any(not n[k] for k in needed):
+                fail(f"[grid2] rank {r} {verify} verify: launches {n} over "
+                     f"{batches} batches")
+            path_launches.append({k: n[k] for k in needed})
+            for k in needed:
+                launches[f"rank{r}"][k] = launches[f"rank{r}"].get(k, 0) + n[k]
+        t = np.array([o[f"times_{p}"] for o in ranks])  # [rank, op, 3]
+        ops = "; ".join(
+            f"{op} {', '.join(f'{x:.4f}' for x in t[:, j, 0] / batches)} "
+            f"ms by CUDA events, {', '.join(f'{x:.4f}' for x in t[:, j, 1] / batches)}"
+            f" host ({int(t[0, j, 2])} calls)"
+            for j, op in enumerate(GRID_TIMED))
+        print(f"[grid2] {verify} verify: find over {len(w['data'])} B -> "
+              f"{len(want)} events == native oracle on the leader, none on "
+              f"the follower; every batch's events, totals and counts == "
+              f"the flat pat_shards={GRID_SHARDS} session's; find "
+              f"{', '.join(f'{float(o[f'find_ms_{p}']):.4f}' for o in ranks)}"
+              f" ms per rank (the flat session's {flat_ms[p]:.4f} ms); "
+              f"launches per rank {path_launches}; a batch "
+              f"(of {batches}): {ops} (gloo, {GRID2_RANKS} ranks on cuda:0; "
+              f"{card_line})", flush=True)
+    want_pc = np.zeros(len(w["pats"]), np.int64)
+    for _off, pid in w["want"]:
+        want_pc[pid] += 1
+    for r, o in enumerate(ranks):
+        pc = global_pattern_counts(sb, tabs, o["gcounts"])
+        n = dict(zip((probe, "window_walk"),
+                     (int(x) for x in o["count_launches"])))
+        if not np.array_equal(pc, want_pc) or n[probe] != batches or not n[
+                "window_walk"]:
+            fail(f"[grid2] rank {r}: count step {int(pc.sum())} pattern "
+                 f"events, oracle {int(want_pc.sum())}; launches {n}")
+        for k, v in n.items():
+            launches[f"rank{r}"][k] += v
+    print(f"[grid2] count step: global_pattern_counts == the oracle's "
+          f"per-pattern counts ({int(want_pc.sum())}) on every rank",
+          flush=True)
+    big_probe = "sampled" if big.cfg.sampled else "strided"
+    w_total, w_bits = want_union
+    for r, o in enumerate(ranks):
+        if (not np.array_equal(o["big_union"], w_bits.cpu().numpy())
+                or int(o["big_meta"][0]) != int(w_total[0])
+                or int(o["big_launches"]) != 1):
+            fail(f"[grid2] rank {r}: the {GRID_DEPLOY} point's union "
+                 f"({int(o['big_meta'][0])}) differs from sharded_hits "
+                 f"({int(w_total[0])}) or made {int(o['big_launches'])} "
+                 f"launches")
+        launches[f"rank{r}"][big_probe] = launches[f"rank{r}"].get(
+            big_probe, 0) + int(o["big_launches"])
+    print(f"[grid2] {GRID_DEPLOY} patterns in {GRID_SHARDS} shards: each "
+          f"rank's union bitmap and total ({int(w_total[0])}) == flat "
+          f"sharded_hits, bit for bit; probe step (1 {big_probe} launch, "
+          f"gather, OR, 2 all_reduce) "
+          f"{', '.join(f'{float(o['big_ms']):.4f}' for o in ranks)} ms a "
+          f"batch per rank by CUDA events; phase wall time "
+          f"{time.perf_counter() - t_phase:.2f} s ({card_line})", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
     if len(sys.argv) == 4 and sys.argv[1] == "--mesh2-rank":
         return mesh2_rank(int(sys.argv[2]), sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--grid2-rank":
+        return grid2_rank(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     import tpu_pattern_matching_torch
@@ -2437,6 +2826,10 @@ def main() -> None:
         for rank, got in phase_mesh2(torch, MatchSession, workloads, tmp,
                                      card_line).items():
             mesh_launches[f"mesh2_{rank}"] = got
+        grid_launches = phase_grid2(torch, MatchSession, workloads, tmp,
+                                    card_line)
+        for rank, got in grid_launches.items():
+            mesh_launches[f"grid2_{rank}"] = got
     # phase 11, last before the trace (why: the docstring)
     proto_times, proto_launches = phase_proto(torch, kernels, card_line)
     times.update(proto_times)
@@ -2487,7 +2880,7 @@ def main() -> None:
          "one_shard_ms": t["one_shard_ms"], "config": t["config"],
          "shape": t["shape"]}
         for key, t in shards.items()
-    ]}
+    ], "grid_launches": grid_launches}
     print(card_line)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

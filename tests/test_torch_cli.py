@@ -190,14 +190,17 @@ def test_unaligned_sizes_warn_like_reference(corpus, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # the 1-D mesh (item 11a) is ported; with --pat-shards it is the
-    # ("pat", "data") grid, item 11b, refused before any process group
-    pytest.param(["--mesh", "all", "--pat-shards", "2"], "item 11b",
+    # the ("pat", "data") grid (item 11b) is ported: its world size must
+    # be a multiple of the shards, else exit 2 before any process group
+    pytest.param(["--mesh", "all", "--pat-shards", "2"],
+                 "--pat-shards 2: 1 ranks do not split into 2 pattern shards",
                  id="flags0-item 11"),
     # --pat-shards (item 10) is ported: the run equals the reference's
     pytest.param(["--pat-shards", "2"], None, id="flags1-item 10"),
-    pytest.param(["--num-processes", "2", "--process-id", "0",
-                  "--pat-shards", "2"], "item 11b", id="flags2-item 11"),
+    pytest.param(["--num-processes", "3", "--process-id", "0",
+                  "--pat-shards", "2"],
+                 "--pat-shards 2: 3 ranks do not split into 2 pattern shards",
+                 id="flags2-item 11"),
 ])
 def test_not_ported_flags_exit_2(flags, item, corpus, capsys, monkeypatch):
     monkeypatch.chdir(corpus)
@@ -211,7 +214,10 @@ def test_not_ported_flags_exit_2(flags, item, corpus, capsys, monkeypatch):
         port_main(argv + ["--device", "cpu"] + flags)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and item in err
+    assert err.startswith(f"ERROR: {item}") and "Traceback" not in err
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()  # refused before any process group
 
 
 @pytest.mark.parametrize("mode", ["byte", "ushort"])
@@ -255,7 +261,9 @@ def test_mesh_not_the_world_size_exits_2(mesh, corpus, capsys, monkeypatch):
 
 
 def test_mesh_with_sharded_dump_exits_2(corpus, capsys, monkeypatch):
-    # a pattern-sharded filter on a mesh is the ("pat", "data") grid
+    # a pattern-sharded filter on a mesh is the ("pat", "data") grid: the
+    # 2-shard dump of the reference needs an even world, and one process
+    # is a world of 1, so the run exits 2 naming both numbers
     from tpu_pattern_matching.core.dfa import compile_patterns
     from tpu_pattern_matching.parallel.pshard import ShardedBloom
 
@@ -268,7 +276,11 @@ def test_mesh_with_sharded_dump_exits_2(corpus, capsys, monkeypatch):
                    "--device", "cpu"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and "item 11b" in err
+    assert err.startswith("ERROR: --pat-shards 2: 1 ranks do not split "
+                          "into 2 pattern shards")
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()  # the run's 1-rank group ended
 
 
 def test_two_nccl_ranks_on_one_device_exit_2(capsys, monkeypatch, tmp_path):

@@ -4,9 +4,12 @@
   arguments, and its forward step (pad + transpose + probe + popcount)
   gives the reference's total and bitmap (the Pallas probe in interpret
   mode) bit for bit.
+- ``entry.dryrun_multichip`` passes on 2 and 4 gloo ranks, the
+  pattern-shard grid block included.
 - ``tools.fuzz_campaign.run_trial`` passes its trials against the oracle
   (it raises on a divergence), and on the trials compared makes the
-  reference campaign's draws and runs its arms, mesh arms aside.
+  reference campaign's draws and runs its arms: alone, every arm but the
+  mesh arms; inside 2 gloo ranks, the mesh arms too.
 - ``utils.debug.kernel_debug`` logs its values at ``TPM_DEBUG=2`` only,
   and below that touches none of them."""
 
@@ -14,6 +17,8 @@ import importlib.util
 import json
 import logging
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -26,9 +31,26 @@ from tpu_pattern_matching_torch.tools import fuzz_campaign
 from tpu_pattern_matching_torch.utils import debug
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the reference campaign's arms that need a device mesh (not ported)
+# the reference campaign's arms that need a device mesh (the port's run
+# inside a process group of 2 or more ranks)
 MESH_ARMS = {"mesh_bloom", "mesh_device_verify", "pshard_device_verify",
              "mesh_dense", "u_mesh"}
+RANK_TIMEOUT_S = 300  # each campaign rank is killed past it and the test fails
+# one rank of the campaign in a gloo group: argv rank, world, url, trials
+CAMPAIGN_RANK = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["tpu_pattern_matching"] = None
+import torch
+from tpu_pattern_matching_torch.parallel import mesh
+from tpu_pattern_matching_torch.tools import fuzz_campaign
+torch.set_num_threads(1)
+rank, world, url = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+mesh.init_distributed(url, world, rank, device="cpu")
+out = [fuzz_campaign.run_trial(int(t), 0, "cpu") for t in sys.argv[4:]]
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
 
 
 def test_entry_equals_reference():
@@ -48,10 +70,20 @@ def test_entry_equals_reference():
 
 def test_dryrun_multichip_on_two_gloo_ranks(capsys):
     # the checks of __graft_entry__.dryrun_multichip (its pat_shards=2
-    # block aside: item 11b) in 2 spawned ranks of a gloo group
+    # block on the grid of 2 ranks included) in 2 spawned ranks of a gloo
+    # group; on 1 rank the grid block is left out, as the reference's is
+    # on an odd device count
     port_entry.dryrun_multichip(2, device="cpu")
     assert port_entry.main(["--device", "cpu", "--multichip", "1"]) == 0
-    assert "dryrun_multichip OK: 1 ranks" in capsys.readouterr().out
+    assert "dryrun_multichip OK: 1 ranks\n" in capsys.readouterr().out
+
+
+def test_dryrun_multichip_grid_block_on_four_gloo_ranks(capsys):
+    # 4 ranks: the grid of 2 shards over 2 lane columns, each column's
+    # leader finding its payload's oracle events and its follower none
+    assert port_entry.main(["--device", "cpu", "--multichip", "4"]) == 0
+    assert ("dryrun_multichip OK: 4 ranks (with the pat_shards=2 grid)"
+            in capsys.readouterr().out)
 
 
 def test_entry_main_runs_on_the_cpu(capsys):
@@ -91,6 +123,31 @@ def test_fuzz_trial_equals_reference_arm_by_arm(trial, ref_campaign):
     assert got["events"] == want["events"]
     assert got["arms"] == [a for a in want["arms"] if a not in MESH_ARMS]
     assert "pat_shards" in got["arms"]
+
+
+def test_fuzz_mesh_arms_in_two_gloo_ranks(ref_campaign, tmp_path):
+    # trials 2 and 6 (mod 4 == 2) inside 2 gloo ranks: each rank runs the
+    # reference's arms, mesh arms included, in its order, every arm's
+    # events equal to the oracle's (the grid follower's: none)
+    trials = ["2", "6"]
+    url = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CAMPAIGN_RANK, str(r), "2", url, *trials],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), text=True) for r in range(2)]
+    try:
+        want = [ref_campaign.run_trial(int(t), 0) for t in trials]
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err}"
+        got = json.loads(out.splitlines()[-1])
+        assert got == want, r
+    assert MESH_ARMS <= set(want[0]["arms"]) | set(want[1]["arms"])
 
 
 def test_kernel_debug_logs_at_level_2_only(monkeypatch, caplog):

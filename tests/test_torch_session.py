@@ -218,9 +218,12 @@ def test_precompiled_reference_filter_gives_same_events():
 @pytest.mark.parametrize("kw,item", [
     # pattern shards (item 10) are ported: the session runs them
     pytest.param(dict(pat_shards=2), None, id="kw0-item 10"),
-    # the 1-D mesh (item 11a) is ported; with pattern shards it is the
-    # ("pat", "data") grid, item 11b
-    pytest.param(dict(mesh="all", pat_shards=2), "item 11b",
+    # the 1-D mesh (item 11a) and, with pattern shards, the ("pat",
+    # "data") grid (item 11b) are ported; the grid needs a world size that
+    # is a multiple of the shards, which a world of 1 is not (the
+    # reference raises alike on one device)
+    pytest.param(dict(mesh="all", pat_shards=2),
+                 "1 ranks do not split into 2 pattern shards",
                  id="kw1-item 11"),
 ])
 def test_unported_options_raise(kw, item):
@@ -230,18 +233,25 @@ def test_unported_options_raise(kw, item):
         assert sess.pat_shards == 2
         assert sess.find(b"xabcdex") == [(4, 0), (5, 1)]
         return
-    with pytest.raises(NotImplementedError, match=item):
+    from tpu_pattern_matching_torch.parallel.mesh import owned_world
+
+    with owned_world(), pytest.raises(ValueError, match=item):
         MatchSession(table, device="cpu", **kw)
 
 
 def test_ushort_tables_raise():
     # ushort tables run every single-device path now
-    # (tests/test_torch_ushort.py) and the mesh (tests/test_torch_mesh.py);
-    # like byte tables, they raise only for the options not ported yet.
-    # Pattern shards need the bloom engine: a ushort table's "auto" is
-    # dense, which raises as in the reference
+    # (tests/test_torch_ushort.py), the mesh (tests/test_torch_mesh.py) and
+    # the grid (tests/test_torch_grid.py); like byte tables, they raise
+    # only for layouts that cannot hold them. Pattern shards need the
+    # bloom engine: a ushort table's "auto" is dense, which raises as in
+    # the reference
+    from tpu_pattern_matching_torch.parallel.mesh import owned_world
+
     table = compile_patterns([[1, 2000, 3], [5, 6]], alphabet_size=2048)
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    # the grid of one rank cannot hold 2 shards
+    with owned_world(), pytest.raises(ValueError, match="1 ranks do not "
+                                      "split into 2 pattern shards"):
         MatchSession(table, device="cpu", engine="bloom", mesh="all",
                      pat_shards=2)
     with pytest.raises(ValueError, match="mesh size 2 is not the world "
@@ -396,6 +406,15 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "from tpu_pattern_matching_torch.entry import _dryrun_rank\n"
         "_dryrun_rank(0, 1, 'unused', 'cpu')\n"
         "assert not dist.is_initialized()\n"
+        "import numpy as np\n"
+        "from tpu_pattern_matching_torch.parallel.pshard import (\n"
+        "    Mesh2DContext, PshardDeviceVerifier, global_pattern_counts,\n"
+        "    make_pattern_sharded_bloom_step,\n"
+        "    make_pattern_sharded_count_step, merge_shard_rows)\n"
+        "ln, e, b, p = merge_shard_rows(\n"
+        "    np.array([0]), np.array([2]), np.array([5]), np.array([1]),\n"
+        "    [(np.array([0, 1, 3]), np.array([0, 1, 2]))])\n"
+        "assert (ln.tolist(), p.tolist()) == ([2], [1, 2])\n"
         "from tpu_pattern_matching_torch.tools import fuzz_campaign\n"
         "assert fuzz_campaign.run_trial(1, 0, 'cpu')['arms']\n"
         "from tpu_pattern_matching_torch.ushort import compile_signatures\n"

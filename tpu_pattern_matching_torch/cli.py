@@ -28,11 +28,15 @@ apps that read its standard output work unchanged.
   --engine        auto | bloom | dense;  --verify auto | host | device
   --pat-shards S  partition the pattern set into S shard filters (bloom)
   --mesh N|all    data-parallel mesh on torch.distributed: one lane shard
-                  per rank, N the world size (a 1-rank group when run alone)
+                  per rank, N the world size (a 1-rank group when run alone);
+                  with --pat-shards S the ("pat", "data") grid: rank r holds
+                  shard r % S of lane column r // S (the world size must be
+                  a multiple of S)
   --num-processes W --process-id p --coordinator host:port
                   start rank p of a W-process mesh (implies --mesh all);
                   each rank reads its own share of the files and prints
-                  its own matches, rank 0 prints the global STATS
+                  its own matches (on the grid: each column's first rank),
+                  rank 0 prints the global STATS
   --sort, --sort-global, --save-dfa/--load-dfa, --save-bloom/--load-bloom
   (a pattern-sharded dump loads as one), --json-stats, --profile DIR (a
   torch.profiler Chrome trace of the run)
@@ -53,9 +57,8 @@ A two-process run on one host, e.g. on the CPU over gloo::
 
 On CUDA devices the ranks run NCCL, one rank per device: two ranks on one
 device exit 2. ``--coordinator`` also takes a ``file:///path`` rendezvous.
-
-Not ported yet (exit 2, naming the ROADMAP queue-1 item): ``--mesh`` (or
-``--num-processes`` > 1) with ``--pat-shards`` > 1 (item 11b).
+``--pat-shards S`` (or a pattern-sharded ``--load-bloom`` dump) on a mesh
+whose world size is not a multiple of S exits 2.
 
 ``check_args``, ``align_parameters``, ``raise_nofile_limit`` and
 ``compile_table`` are copies of the reference's: its module imports the
@@ -139,9 +142,9 @@ def build_argparser() -> argparse.ArgumentParser:
         metavar="S",
         help="partition the pattern set into S balanced shards, each "
         "with its own smaller bloom filter (the 300k+-pattern capacity "
-        "axis); the S probes run on one device and OR into one bitmap "
-        "(the (pat, data) grid of --mesh is not ported yet). Bloom "
-        "engine only",
+        "axis); the S probes run on one device and OR into one bitmap, "
+        "or with --mesh on S ranks of each lane column (the (pat, data) "
+        "grid). Bloom engine only",
     )
     ap.add_argument(
         "--coordinator",
@@ -305,19 +308,23 @@ def compile_table(args) -> DfaTable:
     return table
 
 
-def _not_ported(what: str, item: str) -> None:
-    print(f"ERROR: {what} is not ported to the PyTorch package yet "
-          f"(ROADMAP queue 1, {item}); use tpu_aho_grep for it",
-          file=sys.stderr)
-    sys.exit(2)
+def check_grid(args, n_shards: int) -> None:
+    """Exit 2 when a mesh run (``--mesh`` or ``--num-processes``) cannot
+    hold ``n_shards`` pattern shards: its world size (``--num-processes``,
+    else the process group's, 1 without one) is not a multiple of it."""
+    import torch.distributed as dist
 
+    from tpu_pattern_matching_torch.parallel import pshard
 
-def check_not_ported(args) -> None:
-    """Exit 2, naming the ROADMAP item, for the ("pat", "data") grid."""
-    mesh = args.mesh is not None or args.num_processes > 1
-    if mesh and args.pat_shards > 1:
-        _not_ported("--mesh with --pat-shards > 1 (the (pat, data) grid)",
-                    "item 11b")
+    if n_shards <= 1 or (args.mesh is None and args.num_processes <= 1):
+        return
+    world = args.num_processes if args.num_processes > 1 else (
+        dist.get_world_size() if dist.is_initialized() else 1)
+    try:
+        pshard.check_grid(world, n_shards)
+    except ValueError as e:
+        print(f"ERROR: --pat-shards {n_shards}: {e}", file=sys.stderr)
+        sys.exit(2)
 
 
 def select_device(args) -> torch.device:
@@ -384,6 +391,22 @@ def mesh_spec(args):
     except ValueError as e:
         print(f"ERROR: --mesh {mesh}: {e}", file=sys.stderr)
         sys.exit(2)
+
+
+def rank_feeder(sess, filenames, **kw) -> Feeder:
+    """The ``Feeder`` of this rank's share of ``filenames``: every file
+    without a mesh, the rank's round-robin share on the data mesh, its
+    column's share (``process_id=d`` of ``D``) on a grid column's
+    leader. A grid follower owns no file: it scans its leader's
+    batches."""
+    grid, ctx = sess._grid, sess._mesh_ctx
+    if grid is not None and not grid.is_leader:
+        return Feeder([], **dict(kw, follow=False))
+    if grid is not None:
+        pid, n = grid.data_index, grid.data_size
+    else:
+        pid, n = (ctx.rank, ctx.world_size) if ctx else (0, 1)
+    return Feeder(filenames, process_id=pid, num_processes=n, **kw)
 
 
 def rank_batches(sess, feeder):
@@ -455,7 +478,7 @@ def run(args) -> int:
         sys.stdout.reconfigure(line_buffering=True)
     except (AttributeError, ValueError):  # non-standard streams
         pass
-    check_not_ported(args)
+    check_grid(args, args.pat_shards)
     device = select_device(args)
     start_processes(args, device)
 
@@ -472,9 +495,7 @@ def run(args) -> int:
         sys.exit(2)
 
     bloom_table = load_bloom(args.load_bloom) if args.load_bloom else None
-    if args.mesh is not None and getattr(bloom_table, "n_shards", 1) > 1:
-        _not_ported("--mesh with a pattern-sharded --load-bloom dump (the "
-                    "(pat, data) grid)", "item 11b")
+    check_grid(args, getattr(bloom_table, "n_shards", 1))
 
     sess = MatchSession(
         table,
@@ -500,8 +521,8 @@ def run(args) -> int:
                 file=sys.stderr,
             )
 
-    ctx = sess._mesh_ctx
-    feeder = Feeder(
+    feeder = rank_feeder(
+        sess,
         filenames,
         n_workers=args.thread_no,
         # the session may round max_chunks up for mesh lane alignment; a
@@ -511,8 +532,6 @@ def run(args) -> int:
         halo=sess.halo,
         text_mode=args.text_mode,
         follow=args.follow,
-        process_id=ctx.rank if ctx else 0,
-        num_processes=ctx.world_size if ctx else 1,
     )
 
     stats = RunStats(
@@ -612,8 +631,8 @@ def run(args) -> int:
             print(lines)
     stats.wall_us = now_us() - start
 
-    # each rank printed its own verbose lines (it alone read those files);
-    # rank 0 prints the global STATS block
+    # each rank printed its own verbose lines (it alone read those files;
+    # on the grid, each column's leader); rank 0 prints the global STATS
     if reduce_stats(sess, stats):
         print(stats.render())
         if args.json_stats:

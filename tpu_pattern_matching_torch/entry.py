@@ -13,9 +13,9 @@ the probe kernel; on the CPU it runs the kernel's plain version.
 ``dryrun_multichip(n_ranks, device)`` runs the checks of the reference's
 ``dryrun_multichip`` on a ``torch.distributed`` mesh of ``n_ranks``
 spawned ranks (gloo on the CPU): bloom, dense and device-verify ``find``
-against the oracle, and the sharded scan step's shapes. Its pattern-shard
-block (``pat_shards=2``, the ("pat", "data") grid) waits for ROADMAP queue
-1, item 11b.
+against the oracle, the pattern-shard block on an even number of ranks
+(``pat_shards=2``, the ("pat", "data") grid, host and device verify), and
+the sharded scan step's shapes.
 """
 
 from __future__ import annotations
@@ -106,6 +106,21 @@ def _dryrun_rank(rank: int, world: int, url: str, device: str) -> None:
             got = sess.find(payload)
             if got != expect:
                 raise RuntimeError(f"rank {rank} {kw}: {got} != {expect}")
+        if world % 2 == 0:
+            # the ("pat", "data") grid: a column's two ranks scan one
+            # payload, fed and decoded by the column's leader alone
+            col_payload = (b"r%d " % (rank // 2) + b"xx needle! xx" * 40
+                           + b"\xde\xad\xbe\xef" + b"abcabcab")
+            col_expect = sorted(match_python(patterns, col_payload))
+            for kw in (dict(), dict(verify="device")):
+                sess = MatchSession(table, max_chunks=4 * world,
+                                    chunk_len=64, mesh=ctx, engine="bloom",
+                                    pat_shards=2, **kw)
+                got = sess.find(col_payload)
+                want = col_expect if sess._grid.is_leader else []
+                if got != want:
+                    raise RuntimeError(f"rank {rank} pshard {kw}: {got} != "
+                                       f"{want}")
         # the per-group count-reduction step, on this rank's 4 lanes
         table2, halo, data, start_t, end_t = small_problem(
             num_lanes=4 * world)
@@ -132,8 +147,9 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> None:
     CPU, NCCL on CUDA devices, one rank per device): bloom (host verify),
     dense and device-verify ``MatchSession(mesh=...).find`` against the
     oracle on every rank, and the shapes of ``make_sharded_scan_step``'s
-    outputs. The reference's ``pat_shards=2`` block is skipped: the
-    ("pat", "data") grid waits for ROADMAP queue 1, item 11b. Raises
+    outputs; on an even number of ranks also the reference's
+    ``pat_shards=2`` block (the ("pat", "data") grid: a column's leader
+    must find the oracle's events, its follower none). Raises
     RuntimeError when a rank fails or ``DRYRUN_TIMEOUT_S`` seconds
     pass."""
     import multiprocessing
@@ -174,8 +190,8 @@ def main(argv: list[str] | None = None) -> int:
     print("entry OK:", [tuple(o.shape) for o in out])
     if a.multichip:
         dryrun_multichip(a.multichip, a.device)
-        print(f"dryrun_multichip OK: {a.multichip} ranks (the pat_shards=2 "
-              f"block waits for ROADMAP item 11b)")
+        print(f"dryrun_multichip OK: {a.multichip} ranks" + (
+            " (with the pat_shards=2 grid)" if a.multichip % 2 == 0 else ""))
     return 0
 
 

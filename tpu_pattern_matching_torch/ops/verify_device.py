@@ -333,8 +333,10 @@ class DeviceVerifier:
     ``mesh`` (a ``parallel.mesh.MeshContext``) verifies this rank's lanes
     of a data-parallel mesh: every rank calls ``verify`` together with
     the same ``total``, the probe's largest per-rank total, and each
-    dispatch is reduced (``parallel.mesh.reduce_verify``) before any retry
-    decision."""
+    dispatch is reduced (``_reduce``: ``parallel.mesh.reduce_verify``)
+    before any retry decision; lane passes reduce once, after them
+    (``_reduce_counts``). The grid's verifier
+    (``parallel.pshard.PshardDeviceVerifier``) overrides the two."""
 
     def __init__(self, table, cfg, halo: int, device, gram_keys=None,
                  mesh=None):
@@ -360,24 +362,38 @@ class DeviceVerifier:
         sync of the dispatch), the rest stays on the device. ``meta =
         [n_events, reported, n_cand, flags, n_exact, event need]``, the
         need being the events of the rank that had the most. On a mesh
-        ``n_events`` and ``gcounts`` are summed over the ranks, ``n_cand``
-        and ``n_exact`` are the largest per rank and ``flags`` their OR;
-        ``reported`` and ``packed`` stay this rank's."""
+        ``n_events`` and ``gcounts`` are summed over the ranks, ``n_cand`` and ``n_exact`` are the largest per rank and
+        ``flags`` their OR (``_reduce``); ``reported`` and ``packed`` stay
+        this rank's."""
         meta, packed, gcounts = verify_candidates(
             self.table_flat, self.state_gid, data, bounds, bits, self.exact,
             alphabet_size=self.alphabet_size, stride=self.stride, q=self.q,
             lmax=self.lmax, halo=self.halo, k_cand=k_cand, k_ev=k_ev,
             num_groups=self.num_groups, k_walk=k_walk,
         )
-        if self.mesh is None:
-            meta = torch.cat([meta, meta[:1]])
+        if self.mesh is not None:
+            meta, gcounts = self._reduce(meta, gcounts)
         else:
-            from tpu_pattern_matching_torch.parallel.mesh import (
-                reduce_verify,
-            )
-
-            meta, gcounts = reduce_verify(self.mesh, meta, gcounts)
+            meta = torch.cat([meta, meta[:1]])
         return meta.cpu().numpy(), packed, gcounts
+
+    def _reduce(self, meta, gcounts):
+        """A dispatch's reductions over the mesh (``reduce_verify``)."""
+        from tpu_pattern_matching_torch.parallel.mesh import reduce_verify
+
+        return reduce_verify(self.mesh, meta, gcounts)
+
+    def _reduce_counts(self, n_events: int, gcounts):
+        """Sum the event total and the counts of a rank's lane passes over
+        the mesh (one ``all_reduce``)."""
+        from tpu_pattern_matching_torch.parallel.mesh import (
+            allreduce_host_counts,
+        )
+
+        sums = allreduce_host_counts(
+            np.concatenate([[n_events], gcounts]).astype(np.int64),
+            self.mesh)
+        return sums[0], sums[1:]
 
     def verify(self, data, bounds, bits, total: int):
         """(meta, packed[:, :reported], gcounts) as host arrays. Past
@@ -396,13 +412,8 @@ class DeviceVerifier:
         finally:
             self.mesh = mesh
         if mesh is not None:
-            from tpu_pattern_matching_torch.parallel.mesh import (
-                allreduce_host_counts,
-            )
-
-            sums = allreduce_host_counts(
-                np.concatenate([meta[:1], gc]).astype(np.int64), mesh)
-            meta[0], gc = sums[0], sums[1:].astype(gc.dtype)
+            meta[0], gc_sum = self._reduce_counts(int(meta[0]), gc)
+            gc = gc_sum.astype(gc.dtype)
         return meta, packed, gc
 
     def _lane_passes(self, data, bounds, bits):

@@ -29,8 +29,13 @@ host memory), which is how two ranks share one card. Every group gets a
 timeout of ``TIMEOUT_S`` seconds, so a rank that never joins fails the
 others in bounded time.
 
-Not ported yet: the ("pat", "data") grid of ``parallel/pshard.py`` (ROADMAP
-queue 1, item 11b).
+A ``MeshContext`` may also name a sub-group of the world (``group`` and
+its members' global ``ranks``): the ("pat", "data") grid of
+``parallel/pshard.py`` reduces over a data column's ranks and a pattern
+shard's ranks. Gloo takes CUDA tensors for ``all_reduce``, ``broadcast``
+and the list form of ``all_gather`` on sub-groups too (``chip_smoke.py``'s
+grid phase runs them so on the card), so no call stages through the host
+by hand.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ class DeviceConflict(RuntimeError):
     """Two NCCL ranks would share one CUDA device."""
 
 
-def _timeout() -> datetime.timedelta:
+def group_timeout() -> datetime.timedelta:
+    """Every process group's timeout, ``TIMEOUT_S`` seconds."""
     return datetime.timedelta(seconds=TIMEOUT_S)
 
 
@@ -131,14 +137,14 @@ def init_distributed(coordinator: str | None = None,
     backend = backend or default_backend(dev)
     store, rank, world = next(dist.rendezvous(
         coordinator_url(coordinator), process_id, num_processes,
-        timeout=_timeout()))
-    store.set_timeout(_timeout())
+        timeout=group_timeout()))
+    store.set_timeout(group_timeout())
     if backend == "nccl":
         uuid = torch.cuda.get_device_properties(dev).uuid
         check_distinct_devices(store, rank, world,
                                f"{socket.gethostname()} GPU {uuid}")
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world, timeout=_timeout())
+                            world_size=world, timeout=group_timeout())
     return True
 
 
@@ -155,19 +161,37 @@ def owned_world():
 
 @dataclasses.dataclass
 class MeshContext:
-    """A rank of the data-parallel mesh, which spans the default process
-    group: this rank, the world size, the rank's device and the group's
-    backend."""
+    """A rank of a process group: this rank's index in the group, the
+    group's size, the rank's device and the backend. ``group`` is None for
+    the default group (the data-parallel mesh spans it); a sub-group
+    carries its members' global ``ranks`` in group order."""
 
     rank: int
     world_size: int
     device: torch.device
     backend: str
+    group: object = None
+    ranks: tuple | None = None
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over the group (``"sum"`` or ``"max"``)
         and return it."""
-        dist.all_reduce(t, op=_OPS[op])
+        dist.all_reduce(t, op=_OPS[op], group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of every rank of the group, stacked in group order:
+        ``[world_size, *t.shape]``. (The list form: gloo's
+        ``all_gather_into_tensor`` refuses a stacked output.)"""
+        out = [torch.empty_like(t) for _ in range(self.world_size)]
+        dist.all_gather(out, t.contiguous(), group=self.group)
+        return torch.stack(out)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Overwrite ``t`` in place with group rank ``src``'s and return
+        it."""
+        root = self.ranks[src] if self.ranks is not None else src
+        dist.broadcast(t, src=root, group=self.group)
         return t
 
 
@@ -179,7 +203,7 @@ def world_context(device="cuda") -> MeshContext:
     if not dist.is_initialized():
         dev = rank_device(device, 0)
         dist.init_process_group(default_backend(dev), store=dist.HashStore(),
-                                rank=0, world_size=1, timeout=_timeout())
+                                rank=0, world_size=1, timeout=group_timeout())
     rank = dist.get_rank()
     dev = rank_device(device, rank)
     backend = dist.get_backend()
@@ -333,21 +357,38 @@ def make_sharded_bloom_step(ctx: MeshContext, bloom):
     return step
 
 
-def reduce_verify(ctx: MeshContext, meta, gcounts):
+def flag_bits(flags):
+    """The overflow flags' bits (``FLAG_BITS``), one per element: their
+    MAX over a group is the flags' OR."""
+    return flags & torch.tensor(FLAG_BITS, dtype=flags.dtype,
+                                device=flags.device)
+
+
+def reduce_verify(ctx: MeshContext, meta, gcounts,
+                  counts_ctx: MeshContext | None = None):
     """The collectives of one verify dispatch (``verify_candidates``'
-    ``meta [5]`` and ``gcounts``), one ``all_reduce`` SUM of ``[n_events,
-    gcounts...]`` and one MAX of ``[n_events, n_cand, n_exact, flag bit 0,
-    bit 1, bit 2]`` (MAX of each bit is its OR). Returns ``(meta [6],
-    gcounts)``: ``meta = [summed n_events, this rank's reported, largest
-    n_cand, ORed flags, largest n_exact, largest n_events]`` and the
-    summed gcounts."""
-    sums = ctx.all_reduce(torch.cat([meta[:1], gcounts]))
-    bits = meta[3] & torch.tensor(FLAG_BITS, dtype=meta.dtype,
-                                  device=meta.device)
-    maxes = ctx.all_reduce(torch.cat([meta[[0, 2, 4]], bits]), "max")
-    meta = torch.stack([sums[0], meta[1], maxes[1], maxes[3:].sum(),
+    ``meta [5]`` and ``gcounts``) over ``ctx``: one ``all_reduce`` SUM of
+    ``[n_events, gcounts...]`` and one MAX of ``[n_events, n_cand,
+    n_exact, flag bit 0, bit 1, bit 2]`` (MAX of each bit is its OR).
+    Returns ``(meta [6], gcounts)``: ``meta = [summed n_events, this
+    rank's reported, largest n_cand, ORed flags, largest n_exact, largest
+    n_events]`` and the summed gcounts.
+
+    ``counts_ctx`` (default ``ctx``) is the group the gcounts are summed
+    over instead, in an ``all_reduce`` of their own: on the grid the
+    needs span every rank while a shard's group ids index its own table,
+    so its counts sum over the ranks of that shard only."""
+    if counts_ctx is None or counts_ctx is ctx:
+        sums = ctx.all_reduce(torch.cat([meta[:1], gcounts]))
+        n_events, gcounts = sums[0], sums[1:]
+    else:
+        n_events = ctx.all_reduce(meta[:1].clone())[0]
+        gcounts = counts_ctx.all_reduce(gcounts)
+    maxes = ctx.all_reduce(torch.cat([meta[[0, 2, 4]], flag_bits(meta[3])]),
+                           "max")
+    meta = torch.stack([n_events, meta[1], maxes[1], maxes[3:].sum(),
                         maxes[2], maxes[0]])
-    return meta, sums[1:]
+    return meta, gcounts
 
 
 def make_sharded_bloom_count_step(ctx: MeshContext, bloom, table, *,

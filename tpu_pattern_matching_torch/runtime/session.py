@@ -34,8 +34,10 @@ on the device: the host verifier walks it as probed.
 verify) and the dense engine on a ``torch.distributed`` data-parallel
 mesh: each rank owns one device and ``local_chunks`` lanes of the global
 batch, feeds and decodes only those, and the totals are reduced over the
-ranks. Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
-queue-1 item): ``mesh=`` with ``pat_shards > 1`` (item 11b).
+ranks. With ``pat_shards > 1`` as well it is the ("pat", "data") grid
+(``parallel/pshard.py``): each rank holds one pattern shard of one data
+column, the column's leader feeds and decodes the column's lanes, and
+its followers return no events.
 """
 
 from __future__ import annotations
@@ -90,13 +92,6 @@ class BatchMatches:
     total: int
     reported: int
     overflowed: bool
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP queue "
-        f"1, {item}); use tpu_pattern_matching for it"
-    )
 
 
 class MatchSession:
@@ -159,9 +154,20 @@ class MatchSession:
         are this rank's; ``BatchMatches.total`` is global where the
         reference's is (dense, device verify) and this rank's with host
         verify. Every rank must call ``scan``/``decode`` in lockstep (an
-        idle rank scans an empty batch). Not with ``pat_shards > 1``
-        (item 11b)."""
-        from tpu_pattern_matching_torch.parallel.pshard import ShardedBloom
+        idle rank scans an empty batch).
+
+        ``mesh`` with ``pat_shards=S > 1`` (or a
+        ``parallel.pshard.Mesh2DContext``) is the ("pat", "data") grid of
+        W = S x D ranks (``W % S != 0`` raises ValueError): rank r holds
+        pattern shard ``r % S`` of data column ``r // S``, ``max_chunks``
+        is rounded up to ``D * 128`` lanes and a column's ``local_chunks``
+        are fed by its leader (``r % S == 0``): a follower's batch is only
+        a shape. Only leaders return events; a follower's ``total`` is 0
+        where the reference's is this process's (host verify)."""
+        from tpu_pattern_matching_torch.parallel.pshard import (
+            Mesh2DContext,
+            ShardedBloom,
+        )
         from tpu_pattern_matching_torch.runtime.verify import Verifier
         from tpu_pattern_matching_torch.utils.common import pad_halo, roundup
         from tpu_pattern_matching_torch.utils.debug import dprint
@@ -187,9 +193,12 @@ class MatchSession:
             pat_shards = bloom_table.n_shards
         if pat_shards < 1:
             raise ValueError(f"pat_shards must be >= 1, got {pat_shards}")
-        if mesh is not None and pat_shards > 1:
-            raise _not_ported("mesh= with pat_shards > 1 (the ('pat', "
-                              "'data') grid)", "item 11b")
+        if isinstance(mesh, Mesh2DContext):
+            if pat_shards not in (1, mesh.n_shards):
+                raise ValueError(
+                    f"pat_shards={pat_shards} but the grid has "
+                    f"{mesh.n_shards} shards")
+            pat_shards = mesh.n_shards
         if engine == "auto":
             engine = "bloom" if table.alphabet_size == 256 else "dense"
         if pat_shards > 1 and engine != "bloom":
@@ -202,17 +211,23 @@ class MatchSession:
         self.verify_mode = (
             "host" if verify == "auto" else verify
         ) if engine == "bloom" else "n/a"
-        self._mesh_ctx = ctx = None
+        self._mesh_ctx = ctx = self._grid = None
         if mesh is not None:
             from tpu_pattern_matching_torch.parallel.mesh import (
                 as_mesh_context,
             )
 
-            ctx = self._mesh_ctx = as_mesh_context(mesh, device)
+            if isinstance(mesh, Mesh2DContext):
+                self._grid = mesh
+            elif pat_shards > 1:
+                self._grid = Mesh2DContext.build(
+                    as_mesh_context(mesh, device), pat_shards)
+            ctx = self._mesh_ctx = (self._grid.world if self._grid
+                                    else as_mesh_context(mesh, device))
             # a rank's lanes stay 128-aligned for the bloom bitmap's
             # column -> lane mapping (parallel.mesh.check_lanes); dense
             # lanes just divide evenly
-            max_chunks = roundup(max_chunks, ctx.world_size * (
+            max_chunks = roundup(max_chunks, self._columns * (
                 128 if engine == "bloom" else 1))
             self.device = ctx.device
         else:
@@ -263,14 +278,39 @@ class MatchSession:
         else:
             bft = BloomFilterTable.from_table(table, **(bloom_opts or {}))
         self.bloom_table = bft
-        self._bloom = bft.put(self.device)
-        if ctx is not None:
-            from tpu_pattern_matching_torch.parallel.mesh import (
-                make_sharded_bloom_step,
+        grid = self._grid
+        if grid is not None:
+            from tpu_pattern_matching_torch.parallel.pshard import (
+                make_pattern_sharded_bloom_step,
             )
 
-            self._bloom_step = make_sharded_bloom_step(ctx, self._bloom)
-        if self.verify_mode == "device":
+            if not isinstance(bft, ShardedBloom):
+                raise ValueError("the grid needs a pattern-sharded filter "
+                                 "(ShardedBloom), not a flat one")
+            # this rank's shard alone: 1/S of the filter
+            self._bloom = bft.put_shard(grid.pat_index, self.device)
+            self._bloom_step = make_pattern_sharded_bloom_step(
+                grid, self._bloom)
+        else:
+            self._bloom = bft.put(self.device)
+            if ctx is not None:
+                from tpu_pattern_matching_torch.parallel.mesh import (
+                    make_sharded_bloom_step,
+                )
+
+                self._bloom_step = make_sharded_bloom_step(ctx, self._bloom)
+        if self.verify_mode == "device" and grid is not None:
+            from tpu_pattern_matching_torch.parallel.pshard import (
+                PshardDeviceVerifier,
+                shard_table,
+            )
+
+            # only this rank's shard table is built: its 1/S of the
+            # global one, walked against the column's union bitmap
+            self._dvf = PshardDeviceVerifier(
+                grid, bft,
+                shard_table(table, bft.parts[grid.pat_index]), self.halo)
+        elif self.verify_mode == "device":
             from tpu_pattern_matching_torch.ops.verify_device import (
                 DeviceVerifier,
             )
@@ -280,7 +320,7 @@ class MatchSession:
             self._dvf = DeviceVerifier(table, bft.cfg, self.halo,
                                        self.device, gram_keys=bft.gram_keys,
                                        mesh=ctx)
-        else:
+        elif grid is None or grid.is_leader:  # a follower never decodes
             self._verifier = Verifier(
                 [p.symbols for p in table.patterns],
                 alphabet_size=table.alphabet_size,
@@ -313,12 +353,20 @@ class MatchSession:
     # ------------------------------------------------------------- plumbing
 
     @property
+    def _columns(self) -> int:
+        """The lane shards of a batch: 1 without a mesh, the world size
+        on the data mesh, D on the grid (a column's S ranks share one)."""
+        if self._grid is not None:
+            return self._grid.data_size
+        return self._mesh_ctx.world_size if self._mesh_ctx else 1
+
+    @property
     def local_chunks(self) -> int:
         """Lanes THIS RANK feeds per batch: ``max_chunks`` without a mesh,
         ``max_chunks // world`` on one (each rank assembles only its own
-        lane shard, from its own input files)."""
-        return self.max_chunks // (
-            self._mesh_ctx.world_size if self._mesh_ctx else 1)
+        lane shard, from its own input files), ``max_chunks // D`` on the
+        grid (the column's lanes, fed by its leader)."""
+        return self.max_chunks // self._columns
 
     @property
     def global_totals(self) -> bool:
@@ -341,13 +389,19 @@ class MatchSession:
         uploaded arrays for the verify stage) or the dense walk +
         compaction (``CompactMatches``). On a mesh ``batch`` is this
         rank's lane shard, the probe's ``meta`` is ``[global total, max
-        per-rank total]`` and the dense step gives ``MeshDenseMatches``."""
+        per-rank total]`` and the dense step gives ``MeshDenseMatches``.
+        On the grid the column leader's ``batch`` is broadcast over the
+        column, and ``bits`` are the column's union."""
         from tpu_pattern_matching_torch.ops.compact import scan_and_compact
 
         data = torch.from_numpy(batch.data).to(self.device)
         bounds = torch.from_numpy(
             np.stack([batch.start_t, batch.end_t])
         ).to(self.device)
+        if self._grid is not None:  # the column's leader feeds its lanes
+            # as bytes: neither gloo nor NCCL has a uint16 type
+            self._grid.col.broadcast(data.view(torch.uint8))
+            self._grid.col.broadcast(bounds)
         if self._dense_step is not None:
             return self._dense_step(data, bounds)
         if self.dev is not None:
@@ -495,12 +549,75 @@ class MatchSession:
             total = int(comp.meta[1])
         return self._dvf.verify(comp.data, comp.bounds, comp.bits, total)
 
+    def _grid_events(self, comp: BloomHits):
+        """The grid's device verify of one batch, every rank calling it
+        together with the probe's largest column total: on the column's
+        leader its merged events as ``(lanes, ends, pattern id lists,
+        global group ids)`` (``merge_shard_rows``), empty on a
+        follower."""
+        from tpu_pattern_matching_torch.parallel.pshard import (
+            merge_shard_rows,
+        )
+
+        sh, ln, e, g, _gc = self._dvf.verify_rows(
+            comp.data, comp.bounds, comp.bits, int(comp.meta[1]))
+        ln_a, e_a, bounds, pids = merge_shard_rows(sh, ln, e, g,
+                                                   self._dvf.shard_groups)
+        pid_l = pids.tolist()
+        sets = [pid_l[bounds[i]:bounds[i + 1]] for i in range(len(ln_a))]
+        gid_a = np.array([self._gid_of_pidset.get(tuple(p), -1)
+                          for p in sets], np.int64)
+        return ln_a, e_a, sets, gid_a
+
+    def _merge_pshard_events(self, batch: HostBatch, ln_a, e_a, sets,
+                             gid_a) -> list[MatchEvent]:
+        """MatchEvents of the grid's merged events (``_grid_events``):
+        event i at lane ``ln_a[i]``, row ``e_a[i]``, with the global
+        co-terminating set ``sets[i]`` and its group ``gid_a[i]``."""
+        file_ids, base_off, halo = batch.file_ids, batch.base_off, batch.halo
+        order = range(len(ln_a))
+        if self.sort and len(ln_a):  # canonical order (MATCHING.md)
+            order = np.lexsort((base_off[ln_a] + e_a - halo,
+                                file_ids[ln_a])).tolist()
+        events = []
+        for i in order:
+            ln = int(ln_a[i])
+            events.append(MatchEvent(
+                file_id=int(file_ids[ln]),
+                end_offset=int(base_off[ln]) + int(e_a[i]) - halo,
+                pattern_indices=sets[i],
+                rep_index=sets[i][0],
+                lane=ln,
+                gid=int(gid_a[i]),
+            ))
+        return events
+
     def _decode_bloom(self, batch: HostBatch, comp: BloomHits) -> BatchMatches:
         """Exact events of one batch: total, then (if not zero) the
         device verify stage's events, or the bitmap and the native window
-        walker over its candidates."""
+        walker over its candidates. On the grid a follower returns none."""
         total = self._batch_total(comp)
         events = []
+        if self._grid is not None and self._dvf is not None:
+            from tpu_pattern_matching_torch.parallel.mesh import (
+                allreduce_host_counts,
+            )
+
+            n_ev = 0
+            if total:  # the global total: every rank verifies
+                events = self._merge_pshard_events(batch,
+                                                   *self._grid_events(comp))
+                n_ev = int(allreduce_host_counts(
+                    np.array([len(events)], np.int64), self._mesh_ctx)[0])
+            return BatchMatches(
+                events=events,  # the column's, on its leader
+                total=n_ev,  # every column's
+                reported=len(events),
+                overflowed=False,
+            )
+        if self._grid is not None and not self._grid.is_leader:
+            return BatchMatches(events=[], total=0, reported=0,
+                                overflowed=False)
         if self._dvf is not None:
             n_ev = 0
             if total:  # on a mesh the global total: every rank verifies
@@ -560,7 +677,8 @@ class MatchSession:
 
         On a mesh, the dense and device-verify counts come back reduced
         over every rank (do not reduce them again); host verify counts
-        this rank's lanes (``parallel.mesh.allreduce_host_counts``)."""
+        this rank's lanes (``parallel.mesh.allreduce_host_counts``), none
+        on a grid follower."""
         G = self.table.num_groups
         if isinstance(comp, CompactMatches):
             return int(comp.meta[0]), per_group_counts(
@@ -570,6 +688,20 @@ class MatchSession:
                 np.int64)
         total = self._batch_total(comp)
         if not total:
+            return 0, np.zeros(G, np.int64)
+        if self._grid is not None and self._dvf is not None:
+            # the column's merged events counted on its leader, then
+            # summed over the ranks: the global merged counts everywhere
+            from tpu_pattern_matching_torch.parallel.mesh import (
+                allreduce_host_counts,
+            )
+
+            *_rows, gid_a = self._grid_events(comp)
+            loc = np.append(np.bincount(gid_a[gid_a >= 0], minlength=G),
+                            len(gid_a))  # [counts..., total]
+            red = allreduce_host_counts(loc, self._mesh_ctx)
+            return int(red[G]), red[:G].astype(np.int64)
+        if self._grid is not None and not self._grid.is_leader:
             return 0, np.zeros(G, np.int64)
         if self._dvf is not None:
             meta, _packed, gc = self._device_verify(comp, total)

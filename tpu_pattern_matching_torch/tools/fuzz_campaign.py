@@ -15,10 +15,16 @@ of the port on one device:
 plus a text-mode arm set every third trial and a ushort arm set every
 third trial, as in the reference. A trial makes the reference's draws from
 the same ``RandomState``, so its patterns, corpus, geometry and arm
-choices equal the reference's trial of the same number and seed; only the
-reference's mesh arms are left out (the multi-GPU port, ROADMAP queue 1,
-item 11). Any divergence raises with the full reproduction tuple and the
-tool exits non-zero; the last line is the reference's JSON summary.
+choices equal the reference's trial of the same number and seed. Run
+inside a ``torch.distributed`` group of 2 or more ranks (every rank the
+same trials), the campaign adds the reference's mesh arms every fourth
+trial (``mesh_bloom``, ``mesh_device_verify``, ``pshard_device_verify``
+on the ("pat", "data") grid of 2 shards when the world is even,
+``mesh_dense``, and the ushort ``u_mesh``) on the whole world: every rank
+scans the trial's corpus, so each must find the oracle's events, except
+a grid follower, which returns none. Any divergence raises with the full
+reproduction tuple and the tool exits non-zero; the last line is the
+reference's JSON summary.
 
 Usage: python -m tpu_pattern_matching_torch.tools.fuzz_campaign
        [n_trials] [master_seed] [start] [--device cuda|cpu]
@@ -37,6 +43,26 @@ ALPHABETS = [2, 4, 16, 64, 256]
 USHORT_ALPHABETS = [8, 64, 2048]  # token values (table width stays 2048)
 USHORT_EVERY = 3  # trials also running the ushort arm set
 TEXT_EVERY = 3  # trials (mod 3 == 1) also running the text-mode arm set
+MESH_EVERY = 4  # trials (mod 4 == 2) also running the mesh arm set
+
+
+def mesh_world() -> int:
+    """The ranks of the ``torch.distributed`` group the campaign runs in
+    (1 without one): the mesh arms need 2 or more."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _find(table, data, kw, chunks, clen, device, text_mode=False):
+    """``find`` of one arm's session, and whether the session is a grid
+    follower (whose ``find`` returns no events)."""
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+    sess = MatchSession(table, max_chunks=chunks, chunk_len=clen,
+                        device=device, **kw)
+    follower = sess._grid is not None and not sess._grid.is_leader
+    return sess.find(data, text_mode=text_mode), follower
 
 
 def _check(name, got, want, repro) -> None:
@@ -55,7 +81,6 @@ def run_trial(trial: int, master_seed: int, device="cuda") -> dict:
     ``{"events": oracle events, "arms": arm names run}``."""
     from tpu_pattern_matching_torch.core.dfa import compile_patterns
     from tpu_pattern_matching_torch.core.oracle import match_python
-    from tpu_pattern_matching_torch.runtime.session import MatchSession
 
     rng = np.random.RandomState(master_seed * 100_003 + trial)
     asize = ALPHABETS[rng.randint(len(ALPHABETS))]
@@ -105,16 +130,26 @@ def run_trial(trial: int, master_seed: int, device="cuda") -> dict:
             engine="bloom",
             pat_shards=int(rng.randint(2, min(5, len(pat_list) + 1))),
         )
-    # (the reference's mesh arms come here; they make no draws)
+    world = mesh_world()
+    if world >= 2 and trial % MESH_EVERY == 2:
+        # the reference's mesh arms (they make no draws) on the whole
+        # world: the data mesh, its device verify, the grid's device
+        # verify and the dense engine's per-rank compaction
+        arms["mesh_bloom"] = dict(engine="bloom", mesh="all")
+        arms["mesh_device_verify"] = dict(engine="bloom", mesh="all",
+                                          verify="device")
+        if len(pat_list) >= 2 and world % 2 == 0:
+            arms["pshard_device_verify"] = dict(
+                engine="bloom", mesh="all", pat_shards=2, verify="device")
+        arms["mesh_dense"] = dict(engine="dense", mesh="all",
+                                  max_results=256)
     arms["dense"] = dict(engine="dense", max_results=256)
     want = sorted(match_python(pat_list, data))
     table = compile_patterns(pat_list)
     ran = []
     for name, kw in arms.items():
-        got = MatchSession(
-            table, max_chunks=chunks, chunk_len=clen, device=device, **kw
-        ).find(data)
-        _check(name, got, want, repro)
+        got, follower = _find(table, data, kw, chunks, clen, device)
+        _check(name, got, [] if follower else want, repro)
         ran.append(name)
     if trial % USHORT_EVERY == 0:
         ran += run_ushort_arms(rng, device)
@@ -129,7 +164,6 @@ def run_text_arms(rng, device="cuda") -> list[str]:
     Oracle = per-line match union at absolute offsets."""
     from tpu_pattern_matching_torch.core.dfa import compile_patterns
     from tpu_pattern_matching_torch.core.oracle import match_python
-    from tpu_pattern_matching_torch.runtime.session import MatchSession
 
     # printable alphabet without newline so patterns cannot span lines
     alphabet = np.frombuffer(bytes(range(32, 127)) + b"\t", np.uint8)
@@ -173,9 +207,8 @@ def run_text_arms(rng, device="cuda") -> list[str]:
              f"geom=({chunks},{clen})")
     ran = []
     for name, kw in arms.items():
-        got = MatchSession(
-            table, max_chunks=chunks, chunk_len=clen, device=device, **kw
-        ).find(text, text_mode=True)
+        got, _follower = _find(table, text, kw, chunks, clen, device,
+                               text_mode=True)
         _check(name, got, want, repro)
         ran.append(name)
     return ran
@@ -188,7 +221,6 @@ def run_ushort_arms(rng, device="cuda") -> list[str]:
     equal the oracle in token offsets."""
     from tpu_pattern_matching_torch.core.dfa import AhoCorasick
     from tpu_pattern_matching_torch.core.oracle import match_python
-    from tpu_pattern_matching_torch.runtime.session import MatchSession
 
     asize = USHORT_ALPHABETS[rng.randint(len(USHORT_ALPHABETS))]
     n_pats = int(rng.randint(1, 21))
@@ -222,14 +254,15 @@ def run_ushort_arms(rng, device="cuda") -> list[str]:
     }
     if rng.rand() < 0.5:
         arms["u_device_verify"] = dict(engine="bloom", verify="device")
-    rng.rand()  # the reference's draw for its mesh arm (not ported)
+    # the reference draws for its mesh arm on its (virtual) devices, so
+    # the draw is made alone too, to keep the trials' draws in step
+    if rng.rand() < 0.4 and mesh_world() >= 2:
+        arms["u_mesh"] = dict(engine="bloom", mesh="all")
     repro = (f"ushort asize={asize} n={len(pat_list)} l=[{lmin},{lmax}] "
              f"n_tok={n_tok} geom=({chunks},{clen})")
     ran = []
     for name, kw in arms.items():
-        got = MatchSession(
-            table, max_chunks=chunks, chunk_len=clen, device=device, **kw
-        ).find(text)
+        got, _follower = _find(table, text, kw, chunks, clen, device)
         _check(name, got, want, repro)
         ran.append(name)
     return ran

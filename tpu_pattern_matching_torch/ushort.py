@@ -31,7 +31,6 @@ from tpu_pattern_matching_torch.core.dfa import (
 )
 from tpu_pattern_matching_torch.core.patterns import load_signature_file
 from tpu_pattern_matching_torch.runtime.buffers import UshortBuffer
-from tpu_pattern_matching_torch.runtime.feeder import Feeder
 from tpu_pattern_matching_torch.runtime.files import expand_paths
 from tpu_pattern_matching_torch.runtime.stats import RunStats
 from tpu_pattern_matching_torch.utils.common import cdiv, now_us
@@ -99,12 +98,13 @@ def run_ushort_grep(args, device) -> int:
     ``--pat-shards`` > 1 forces bloom (S shard filters, one union
     bitmap). On a mesh (``--mesh``, or the process group the CLI joined
     for ``--num-processes``) each rank reads its own share of the flow
-    files, the ranks scan in lockstep rounds and rank 0 prints the global
-    STATS, as in the byte CLI."""
+    files (on the grid, each column's leader), the ranks scan in lockstep
+    rounds and rank 0 prints the global STATS, as in the byte CLI."""
     from tpu_pattern_matching_torch.cli import (
         batch_total,
         mesh_spec,
         rank_batches,
+        rank_feeder,
         reduce_stats,
     )
 
@@ -134,8 +134,8 @@ def run_ushort_grep(args, device) -> int:
         pat_shards=pat_shards,
         mesh=mesh_spec(args),
     )
-    ctx = sess._mesh_ctx
-    feeder = Feeder(
+    feeder = rank_feeder(
+        sess,
         filenames,
         n_workers=args.thread_no,
         max_chunks=sess.local_chunks,
@@ -143,8 +143,6 @@ def run_ushort_grep(args, device) -> int:
         halo=sess.halo,
         follow=getattr(args, "follow", False),
         buffer_factory=UshortBuffer,
-        process_id=ctx.rank if ctx else 0,
-        num_processes=ctx.world_size if ctx else 1,
     )
 
     stats = RunStats(
