@@ -5,6 +5,9 @@
 
 Phases (any failure exits non-zero at once):
 
+0. pin      — ``TPM_COST_CONSTANTS`` is set to a missing path, so every
+              filter is built with the reference's v5e constants and picks
+              the reference's configs whatever cost file the host holds;
 1. build    — compile the three CUDA libraries of
               ``tpu_pattern_matching_torch/csrc/`` with nvcc for sm_90a, one
               nvcc each, all at once; print each kernel's ptxas line
@@ -125,6 +128,24 @@ Phases (any failure exits non-zero at once):
               equals the flat ``sharded_hits``, bit for bit); each rank's
               launch counts show K1 or K2 once a batch and W2 per
               dispatch;
+10f. calibrate — the chooser's calibrator (``ops.costmodel``: the
+              measurement and fit of ``calibrate``, ``run_calibration``,
+              and its file written as ``calibrate`` writes it) at the
+              reference's full shapes on the card (the 10k x 12 B
+              point's [4096, 4112+] byte batch, the 2,000-signature
+              point's [2048, 4096+] uint16 batch), into a file of the
+              run's temporary directory: the six constants beside the v5e
+              defaults, both points' picks, units and candidate counts,
+              each timed call's CUDA-event ms per call (its probe launch
+              and all its device work come from the trace phase), the
+              file loaded (every constant positive and finite, source
+              ``calibrated:cuda:...``), the user's cache file untouched,
+              both points' probes against the plain probe on their
+              batches; then the bench workload's and the ushort CLI's
+              filters built again under the calibrated constants: a pick
+              that differs runs its workload against the native oracle
+              (the byte one as timed finds, A B B A), and both picks'
+              probes are traced;
 11. proto   — the prototype probes of the reference's
               ``benchmarks/exp_bloom.py`` (K4, one tile [286, 512]; K5, the
               grid [58368, 1024] of 128 tiles with their pad rows), each
@@ -152,12 +173,14 @@ Phases (any failure exits non-zero at once):
               session thins the traces after it);
 14. no jax  — the port never imported jax nor the JAX package.
 
-Each of phases 3-9, 10b, 10c, 10d and 10e (in each rank) and 11 sets
-every launch count to 0 before its path and reads them after it; each
-fails unless the kernels of its path were launched. Each of phases 7-9,
-10b-10e and 11 prints its wall time. The summary gives each kernel's
-launches on the mesh and grid paths (``mesh_launches``) and the grid
-ranks' launches (``grid_launches``).
+Each of phases 3-9, 10b, 10c, 10d and 10e (in each rank), 10f and 11
+sets every launch count to 0 before its path and reads them after it;
+each fails unless the kernels of its path were launched. Each of phases
+7-9, 10b-10f and 11 prints its wall time. The summary's ``launches``
+are the main path's alone; it gives each kernel's launches in the
+calibration (``calibration_launches``; the phase's record:
+``calibration``), on the mesh and grid paths (``mesh_launches``) and in
+the grid ranks (``grid_launches``).
 The last lines are the card's name and power limit, a JSON line with the
 per-kernel summary (every kernel at each symbol width, with its bound,
 share and, for the probes, its numbers on the main path's inputs), and
@@ -185,6 +208,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 from tpu_pattern_matching_torch.utils.measure import (  # noqa: E402
     BANK_OPS, bound_of, card, event_ms, trace_ms)
+
+# The chooser prices with the reference's v5e defaults whatever cost
+# constants file the host holds (tests/conftest.py pins them alike), so
+# every phase checks the reference's picks; the calibration phase points
+# it at its own file for a while. Spawned ranks inherit the pin.
+COST_ENV, COST_PIN = "TPM_COST_CONSTANTS", "/nonexistent/tpm-cost-constants"
+os.environ[COST_ENV] = COST_PIN
 
 BATCH_LANES = 4096  # bench.py's batch: 4096 lanes x 4096 bytes
 CHUNK_LEN = 4096
@@ -349,11 +379,14 @@ def bound_text(b: dict) -> str:
             f"B, {b['ops']} int32 ops)")
 
 
-def phase_trace(torch, times, main, shards, ab_fns, card_line: str) -> None:
+def phase_trace(torch, times, main, shards, ab_fns, cal,
+                card_line: str) -> None:
     """Device times from torch.profiler traces: each kernel's per launch
     (also on the main path's inputs, ``main``), the sharded probes' per
     batch (``shards``: S launches) and one shard's launch on the same
-    batch, and the packed A/B's per call (every kernel of prep + probe).
+    batch, the packed A/B's per call (every kernel of prep + probe), and
+    each call of the calibration phase (``cal``): its probe launch and all
+    its device work per call, beside its CUDA-event time per call.
     Runs last, so that the profiler's set-up and hooks cannot touch the
     host-bound times taken before it."""
     for key, t in times.items():
@@ -390,6 +423,16 @@ def phase_trace(torch, times, main, shards, ab_fns, card_line: str) -> None:
               f"(bound {t['one_shard_bound_ms']:.6f} ms); sharded / one "
               f"shard {t['ms'] / t['one_shard_ms']:.4f} ({card_line})",
               flush=True)
+    for label, t in cal.items():
+        fn = t.pop("fn")
+        t["probe_ms"], count = trace_ms(fn, KERNELS[t["key"]][1])
+        t["device_ms"], t["device_ops"] = trace_ms(fn)
+        print(f"[trace] {label}: {t['event_ms']:.4f} ms per call by CUDA "
+              f"events, {t['device_ms']:.4f} ms device time per call (all "
+              f"{t['device_ops']} device operations of 100 calls; busy "
+              f"{t['device_ms'] / t['event_ms']:.4f} of the event span), "
+              f"its {t['key']} launch {t['probe_ms']:.4f} ms ({count} "
+              f"launches traced) ({card_line})", flush=True)
     ab = [trace_ms(ab_fns[packed])[0] for packed in AB]
     print(f"[trace] packed A/B, device time of prep + probe per call: byte "
           f"path {ab[0]:.4f}, {ab[3]:.4f} ms, packed path {ab[1]:.4f}, "
@@ -2769,6 +2812,167 @@ def phase_grid2(torch, MatchSession, workloads, tmp, card_line) -> dict:
     return launches
 
 
+COST_FIELDS = ("probe_ns_per_unit", "refine_ns_per_slot",
+               "refine_fixed_ns_per_byte", "verify_ns_per_cand",
+               "probe_ns_per_unit_u2048", "verify_ns_per_cand_u2048")
+
+
+@contextlib.contextmanager
+def cost_constants(path: str):
+    """The chooser prices with the constants file ``path`` inside the
+    block; the pin to the defaults comes back after it."""
+    os.environ[COST_ENV] = path
+    try:
+        yield
+    finally:
+        os.environ[COST_ENV] = COST_PIN
+
+
+def file_stamp(path: str):
+    return (os.stat(path).st_mtime_ns, os.stat(path).st_size) if (
+        os.path.exists(path)) else None
+
+
+def probe_key(cfg, ushort: bool) -> str:
+    """The launch-count key of a filter's probe kernel."""
+    return ("sampled" if cfg.sampled else "strided") + ("_u16" if ushort
+                                                        else "")
+
+
+def phase_calibrate(torch, bloom, kernels, MatchSession, workloads, ush, tmp,
+                    card_line) -> tuple[dict, dict, dict]:
+    """The chooser's calibrator (``ops.costmodel.run_calibration``, then
+    the constants saved as ``calibrate`` saves them) at the reference's
+    full shapes on the card, into a temporary file: the
+    constants beside the v5e defaults, the picks, the timed calls; the
+    file loads, every constant is positive and finite, and the user's
+    cache file is untouched. The probes of both points are held to the
+    plain probe on the calibration's batches. Then the bench workload's
+    and the ushort CLI's filters are built again under the calibrated
+    constants; a pick that differs runs its workload against the oracle,
+    and both picks' probes are timed (traced in the trace phase). Returns
+    (launches, the calls to trace, the summary's record)."""
+    from tpu_pattern_matching_torch.ops import costmodel
+
+    t_phase = time.perf_counter()
+    cache = file_stamp(costmodel.DEFAULT_PATH)
+    path = os.path.join(tmp, "cost_constants.json")
+    reset(kernels)
+    run = costmodel.run_calibration(device=DEVICE)  # calibrate() = run + save
+    cc = run.constants
+    cc.save(path)
+    byte, ushort = run.points
+    launches = read_launches(kernels, "calibrate", (
+        probe_key(byte.bft.cfg, False), probe_key(ushort.bft.cfg, True)))
+    loaded = costmodel.CostConstants.load(path)
+    bad = [f for f in COST_FIELDS
+           if not (getattr(loaded, f) > 0 and np.isfinite(getattr(loaded, f)))]
+    if loaded != cc or bad or not loaded.source.startswith(
+            "calibrated:cuda:"):
+        fail(f"[calibrate] the file holds {loaded} (returned {cc}); not "
+             f"positive and finite: {bad}")
+    if file_stamp(costmodel.DEFAULT_PATH) != cache:
+        fail(f"[calibrate] the user cache {costmodel.DEFAULT_PATH} changed")
+    cal_s = run.seconds
+    default = costmodel.CostConstants()
+    for f in COST_FIELDS:  # a None ushort default prices with the byte one
+        dv = getattr(default, f) or getattr(default, f.replace("_u2048", ""))
+        print(f"[calibrate] {f:26s} {getattr(cc, f):.6g} calibrated, {dv} "
+              f"v5e default ({card_line})", flush=True)
+    m = run.measurement
+    record = dict(constants=dataclasses.asdict(cc), seconds=cal_s,
+                  n_cand=m.n_cand, u_n_cand=m.u_n_cand, picks={})
+    print(f"[calibrate] source {cc.source!r}; byte point "
+          f"{cfg_name(byte.bft.cfg)} ({byte.units} units) on "
+          f"[{byte.data.shape[0]}, {byte.data.shape[1]}] uint8, n_cand "
+          f"{m.n_cand}; ushort point {cfg_name(ushort.bft.cfg)} "
+          f"({ushort.units} units) on [{ushort.data.shape[0]}, "
+          f"{ushort.data.shape[1]}] uint16, u_n_cand {m.u_n_cand}; "
+          f"host verify {m.verify_s * 1e3:.4f}, {m.u_verify_s * 1e3:.4f} ms",
+          flush=True)
+    traces = {}
+    for label, c in run.calls.items():
+        key = probe_key(c["cfg"], c["ushort"])
+        traces[f"calibrate {label}"] = dict(fn=c["fn"], key=key,
+                                            event_ms=c["s"] * 1e3)
+        print(f"[calibrate] {label:15s} {c['s'] * 1e3:.4f} ms per call by "
+              f"CUDA events (best of 4 rounds of 20 calls), probe "
+              f"{key} {cfg_name(c['cfg'])} ({card_line})", flush=True)
+    print(f"[calibrate] calibrate() wall time {cal_s:.2f} s", flush=True)
+    # the kernels of both points against the plain probe on its batches
+    uploaded = {}
+    for point, ushort_point in ((byte, False), (ushort, True)):
+        cfg = point.bft.cfg
+        data = torch.from_numpy(point.data).to(DEVICE)
+        bounds = torch.from_numpy(np.stack([point.start, point.end])).to(
+            DEVICE)
+        uploaded[ushort_point] = (data, bounds)
+        data_tm, Cp = bloom.prep_time_major(data, cfg)
+        bp = bloom.pad_bounds(bounds, Cp)
+        words = point.bft.put(DEVICE).words
+        got = kernels.launch_probe(data_tm, bp, words, cfg)
+        want = bloom.probe_bits_plain(data_tm, bp, words, cfg)
+        err = max_abs_err(torch, got, want)
+        if err:
+            fail(f"[calibrate] {cfg_name(cfg)} differs from the plain probe "
+                 f"on the calibration's batch (max_abs_err {err})")
+    print("[calibrate] both points' probe kernels == plain probe on the "
+          "calibration's batches, bit for bit", flush=True)
+    # the filters of the bench workload and the ushort CLI, built again
+    # under the calibrated constants
+    from tpu_pattern_matching_torch.ops.bloom import BloomFilterTable
+
+    for label, w, ushort_point in (
+            ("bench workload", workloads[0], False),
+            ("ushort CLI set", ush, True)):
+        t0 = time.perf_counter()
+        picks = [BloomFilterTable.from_table(w["table"])]
+        with cost_constants(path):
+            picks.append(BloomFilterTable.from_table(w["table"]))
+        names = [cfg_name(b.cfg) for b in picks]
+        record["picks"][label] = names
+        print(f"[calibrate] {label}: default pick {names[0]}, calibrated "
+              f"pick {names[1]} (both built in "
+              f"{time.perf_counter() - t0:.2f} s)", flush=True)
+        if names[0] == names[1]:
+            continue
+        if ushort_point:
+            sess = MatchSession(ush["table"], max_chunks=U16_LANES,
+                                chunk_len=U16_TOKENS, device=DEVICE,
+                                engine="bloom", bloom_table=picks[1])
+            got = set()
+            for name in sorted(os.listdir(ush["flow_dir"])):
+                path = os.path.join(ush["flow_dir"], name)
+                with open(path, "rb") as f:
+                    for e, p in sess.find(f.read()):
+                        got.add((path, e - len(ush["sigs"][p]) + 1, p))
+            check_events("calibrate ushort", got, ush["want"])
+            print(f"[calibrate] {label}, calibrated pick: {len(got)} events "
+                  f"== native oracle", flush=True)
+        else:
+            rates = [timed_find(torch, session(MatchSession, w,
+                                               bloom_table=picks[i]), w,
+                                "calibrate")
+                     for i in (0, 1, 1, 0)]
+            print(f"[calibrate] {label}, 1e-3 planted: find over "
+                  f"{len(w['data'])} B == native oracle with either pick; "
+                  f"{rates[0]:.6g}, {rates[3]:.6g} B/s default, "
+                  f"{rates[1]:.6g}, {rates[2]:.6g} B/s calibrated (A, B, "
+                  f"B, A; smoke numbers, {card_line})", flush=True)
+        data, bounds = uploaded[ushort_point]
+        for which, b in zip(("default", "calibrated"), picks):
+            words = b.put(DEVICE).words
+            traces[f"{label} {which} pick"] = dict(
+                fn=functools.partial(bloom.hits, data, bounds, words, b.cfg),
+                key=probe_key(b.cfg, ushort_point),
+                event_ms=event_ms(functools.partial(
+                    bloom.hits, data, bounds, words, b.cfg), 20))
+    record["seconds_phase"] = time.perf_counter() - t_phase
+    print(f"[calibrate] phase wall time {record['seconds_phase']:.2f} s "
+          f"({card_line})", flush=True)
+    return launches, traces, record
+
+
 def main() -> None:
     import torch
 
@@ -2830,12 +3034,17 @@ def main() -> None:
                                     card_line)
         for rank, got in grid_launches.items():
             mesh_launches[f"grid2_{rank}"] = got
+        cal_launches, cal_traces, calibration = phase_calibrate(
+            torch, bloom, kernels, MatchSession, workloads, ush, tmp,
+            card_line)
     # phase 11, last before the trace (why: the docstring)
     proto_times, proto_launches = phase_proto(torch, kernels, card_line)
     times.update(proto_times)
     for key in ("proto_tile", "proto_grid"):
         launches[key] = proto_launches[key]
-    phase_trace(torch, times, main_times, shards, ab_fns, card_line)
+    phase_trace(torch, times, main_times, shards, ab_fns, cal_traces,
+                card_line)
+    calibration["calls"] = cal_traces
     phase_dispatch(torch, dispatch_sessions, card_line)
     imported = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "tpu_pattern_matching")]
@@ -2856,6 +3065,9 @@ def main() -> None:
          # the scope of its bound_ms and plain_ms
          **({"call_ms": times[key]["call_ms"]}
             if "call_ms" in times[key] else {}),
+         # the calibration phase's share of launches
+         **({"calibration_launches": cal_launches[key]}
+            if cal_launches.get(key) else {}),
          # the kernel's launches on the mesh phases' paths (per run)
          **({"mesh_launches": {run: got[key] for run, got in
                                mesh_launches.items() if got.get(key)}}
@@ -2880,7 +3092,7 @@ def main() -> None:
          "one_shard_ms": t["one_shard_ms"], "config": t["config"],
          "shape": t["shape"]}
         for key, t in shards.items()
-    ], "grid_launches": grid_launches}
+    ], "grid_launches": grid_launches, "calibration": calibration}
     print(card_line)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

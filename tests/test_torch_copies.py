@@ -7,8 +7,11 @@ reference's jax-free modules it keeps as copies under the same names
 ``runtime.buffers``, ``runtime.stager_native``, ``runtime.verify``,
 ``runtime.feeder``, ``runtime.files``, ``runtime.stats``,
 ``runtime.tracing.PhaseTimer``, ``utils.common``, ``utils.debug``, the
-sentiment app's counters, the host half of ``ops.exact_gram``). Every output here is an integer, a string or
+sentiment app's counters, the host half of ``ops.exact_gram``, the tool
+``tools.length_trains``). Every output here is an integer, a string or
 an exact count, so every comparison is exact."""
+
+import os
 
 import numpy as np
 import pytest
@@ -328,3 +331,62 @@ def test_build_exact_table_equals_reference(name):
         for field in ("q", "dmax", "m", "c1", "c2", "n", "bits"):
             assert getattr(port, field) == getattr(ref, field), field
     assert port.n == len(grams)
+
+
+def load_reference_tool(name: str):
+    """The reference's ``tools/<name>.py``, loaded by path (``tools/`` is
+    not a package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"ref_tool_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TRACE_LINES = [
+    "1 0.0 10.0.0.1 -> 10.0.0.2 TCP 74 4444->443 [SYN] Seq=0 Len=40",
+    "2 0.1 10.0.0.2 -> 10.0.0.1 TCP 74 443->4444 [ACK] Seq=1 Len=32",
+    "3 0.2 10.0.0.1 -> 10.0.0.2 TCP 66 4444->443 [ACK] Seq=41",  # no Len=
+    "4 0.3 10.0.0.1",  # a short line: no destination, no length
+    "5 0.4 10.0.0.1 -> 10.0.0.2 TCP 74 x [PSH] Len=287 Len=9",
+    "6 0.5 10.0.0.2 -> 10.0.0.1 TCP 74 x [PSH] Len=abc",
+    "",
+]
+
+
+def test_length_trains_equal_reference(tmp_path):
+    from tpu_pattern_matching_torch.tools import length_trains as port_lt
+
+    ref_lt = load_reference_tool("length_trains")
+    for line in TRACE_LINES:
+        assert port_lt.parse_trace_line(line) == ref_lt.parse_trace_line(
+            line), line
+    trace = tmp_path / "trace"
+    trace.mkdir()
+    flows = {  # three flows: a client's, a server-heavy one, one empty
+        "10.0.0.1-10.0.0.2-4444-443": TRACE_LINES,
+        "10.0.0.9-10.0.0.1-5000-80": [
+            "1 0.0 10.0.0.9 -> 10.0.0.1 UDP 60 x Len=5",
+            "2 0.1 10.0.0.1 -> 10.0.0.9 UDP 60 x Len=1500",
+            "3 0.2 10.0.0.1 -> 10.0.0.9 UDP 60 x Len=0",
+        ],
+        "10.0.0.3-10.0.0.4-1-2": ["no packets here"],
+        "nodash": ["1 0.0 10.0.0.1 -> 10.0.0.2 TCP 74 x Len=3"],
+    }
+    for name, lines in flows.items():
+        (trace / name).write_text("\n".join(lines) + "\n")
+    (trace / "10.0.0.5-10.0.0.6-7-8").mkdir()  # not a file: skipped
+    outs = []
+    for i, mod in enumerate((ref_lt, port_lt)):
+        out = tmp_path / f"out{i}"
+        out.mkdir()
+        paths = mod.extract(str(trace), str(out))
+        assert [os.path.basename(p) for p in paths] == [
+            "tx.signatures", "rx.signatures", "txrx.signatures"]
+        outs.append([open(p, "rb").read() for p in paths])
+    assert outs[0] == outs[1]
+    assert outs[1][2].decode().splitlines() == [
+        "40, -32, 287", "", "5, -1500, -0"]

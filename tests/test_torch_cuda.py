@@ -574,3 +574,36 @@ def test_two_nccl_ranks_on_one_device_exit_2(cuda, tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 2, err
         assert "one rank per CUDA device" in err and "Pattern" not in out
+
+
+def test_small_calibration_on_cuda(cuda, tmp_path, monkeypatch):
+    # the calibrator on the card at a small size: its probes launch the
+    # kernels, its file loads, and its constants are positive
+    import math
+
+    from tpu_pattern_matching_torch.ops import costmodel
+
+    path = str(tmp_path / "cc.json")
+    runs = []
+    run_calibration = costmodel.run_calibration
+
+    def recorded(*args, **kwargs):
+        runs.append(run_calibration(*args, **kwargs))
+        return runs[-1]
+
+    monkeypatch.setattr(costmodel, "run_calibration", recorded)
+    before = dict(kernels.launches)
+    cc = costmodel.calibrate(path=path, n_patterns=300, verbose=False,
+                             device=cuda, lanes=256, chunk=1024,
+                             u_signatures=200, u_lanes=256, u_chunk=1024,
+                             calls=3)
+    assert cc.source == f"calibrated:cuda:{torch.cuda.get_device_name(0)}"
+    assert costmodel.CostConstants.load(path) == cc
+    for f, v in dataclasses.asdict(cc).items():
+        if f != "source":
+            assert v > 0 and math.isfinite(v), f
+    moved = {k for k, n in kernels.launches.items() if n > before[k]}
+    byte, ushort = runs[0].points
+    assert ("sampled" if byte.bft.cfg.sampled else "strided") in moved
+    assert ("sampled_u16" if ushort.bft.cfg.sampled
+            else "strided_u16") in moved

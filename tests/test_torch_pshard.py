@@ -174,6 +174,38 @@ def test_union_bitmap_equals_reference(S, mode, width):
     assert int(dev.probe_total(td, tb[0], tb[1])) == int(total[0])
 
 
+@pytest.mark.parametrize("S", [1, 2])
+def test_probe_total_takes_the_reference_halo(S):
+    # the reference's call form probe_total(d, s, e, halo=16), flat and
+    # with pattern shards, and the engines' scan_total, which pass halo
+    from tpu_pattern_matching import engine as ref_engine
+    from tpu_pattern_matching.ops import bloom as ref_bloom
+    from tpu_pattern_matching_torch import engine
+    from tpu_pattern_matching_torch.ops.bloom import BloomFilterTable
+
+    pats = _patterns(n=18, seed=5)
+    ref_table = ref_compile(pats)
+    if S == 1:
+        ref_f = ref_bloom.BloomFilterTable.from_table(ref_table)
+        f = BloomFilterTable.from_reference(ref_f)
+    else:
+        ref_f = ref_pshard.ShardedBloom.from_table(ref_table, S)
+        f = ShardedBloom.from_reference(ref_f)
+    ref_fn, halo = ref_engine.best_scan_total_fn(
+        ref_table, 128, 64, engine="bloom", bloom_table=ref_f)
+    fn, port_halo = engine.best_scan_total_fn(
+        compile_patterns(pats), 128, 64, engine="bloom", bloom_table=f,
+        device="cpu")
+    assert port_halo == halo == 16
+    data, bounds = _ragged(S, 128, halo + 64, 256, halo, pats)
+    td, tb = torch.from_numpy(data), torch.from_numpy(bounds)
+    want = int(ref_f.put().probe_total(data, bounds[0], bounds[1],
+                                       halo=halo))
+    assert int(f.put(CPU).probe_total(td, tb[0], tb[1], halo=halo)) == want
+    assert int(fn(td, tb[0], tb[1])) == int(
+        ref_fn(data, bounds[0], bounds[1])) == want > 0
+
+
 def test_sharded_session_matches_oracle_single_device():
     pats = _patterns()
     data, _ = planted_binary(11, 1 << 14, pats, 40)

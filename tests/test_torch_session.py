@@ -164,6 +164,48 @@ def test_scan_and_decode_equals_reference(engine):
     assert got[1] > 40
 
 
+def test_positional_arguments_take_the_reference_order():
+    # MatchSession(table, max_chunks, chunk_len, max_results, halo,
+    # sharding, sort, engine, ...) in both packages: the same positional
+    # call gives the same session and the same events
+    pats = [rand_bytes(s, 12) for s in range(50, 58)] + [b"abc", b"bcd"]
+    data = bytearray(rand_bytes(4, 6000))
+    for i, p in enumerate(pats):
+        data[400 * i + 7 : 400 * i + 7 + len(p)] = p
+    data = bytes(data)
+    table = compile_patterns(pats)
+    args = (table, 128, 64, 16, None, None, True, "dense")
+    ref = RefSession(*args)
+    port = MatchSession(*args, device="cpu")
+    assert (ref.sort, ref.engine) == (port.sort, port.engine) == (
+        True, "dense")
+    assert (ref.max_chunks, ref.chunk_len, ref.max_results, ref.halo) == (
+        port.max_chunks, port.chunk_len, port.max_results, port.halo)
+    buf = port.new_buffer()
+    buf.add_stream(io.BytesIO(data), StreamState(file_id=1))
+    batch = buf.to_batch()
+    got = batch_events(port.scan_and_decode(batch))
+    assert got == batch_events(ref.scan_and_decode(batch))
+    assert got[1] >= len(pats)
+    assert port.find(data) == ref.find(data) == sorted(
+        match_python(pats, data))
+
+
+def test_sharding_names_the_placement_device():
+    table = compile_patterns([b"abcd"])
+    cpu = torch.device("cpu")
+    # a torch.device in the reference's sharding place places the session
+    # when device is left at its default, and must agree with it otherwise
+    assert MatchSession(table, sharding=cpu).device == cpu
+    assert MatchSession(table, sharding=cpu, device="cpu").device == cpu
+    assert MatchSession(table, 4, 64, 16, None, cpu).find(b"xabcd") == [
+        (4, 0)]
+    with pytest.raises(ValueError, match="contradicts"):
+        MatchSession(table, sharding=torch.device("cuda"), device="cpu")
+    with pytest.raises(TypeError, match="sharding"):
+        MatchSession(table, sharding="cpu", device="cpu")
+
+
 def test_refine_overflow_grows_k_ref_like_reference():
     # match-dense input past the refinement capacity: the unrefined bitmap
     # passes through, events stay exact, and k_ref grows as in the
@@ -432,6 +474,20 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "torch.from_numpy(b), m1, m2)\n"
         "want = exp_bloom.np_probe(exp_bloom.np_windows(d), b, m1, m2)\n"
         "assert (hit.numpy() == want).all() and want.sum() == 264\n"
+        "from tpu_pattern_matching_torch.ops.costmodel import calibrate\n"
+        "cc = calibrate(path=None, n_patterns=50, verbose=False, "
+        "device='cpu', lanes=128, chunk=128, u_signatures=40, "
+        "u_lanes=128, u_chunk=128, calls=1)\n"
+        "assert cc.source.startswith('calibrated:cpu'), cc\n"
+        "import os\n"
+        "from tpu_pattern_matching_torch.tools import length_trains\n"
+        "os.mkdir('trace')\n"
+        "open('trace/10.0.0.1-10.0.0.2-1-2', 'w').write(\n"
+        "    '1 0 10.0.0.1 -> 10.0.0.2 TCP 74 x Len=40\\n'\n"
+        "    '2 0 10.0.0.2 -> 10.0.0.1 TCP 74 x Len=32\\n')\n"
+        "paths = length_trains.extract('trace', '.')\n"
+        "assert [open(p).read() for p in paths] == "
+        "['40\\n', '32\\n', '40, -32\\n']\n"
         "mods = [m for m in sys.modules if (m.startswith('jax') or "
         "m.split('.')[0] == 'tpu_pattern_matching') and "
         "sys.modules[m] is not None]\n"

@@ -55,7 +55,7 @@ def best_scan_total_fn(
         db = bft.put(dev)
 
         def scan_total(data, start_t, end_t):
-            return db.probe_total(data, start_t, end_t)
+            return db.probe_total(data, start_t, end_t, halo=halo)
 
         return scan_total, halo
     if engine != "dense":

@@ -1028,8 +1028,10 @@ class DeviceBloom:
             meta, bits = hits(data, bounds, self.words, self.cfg)
         return BloomHits(meta=meta, bits=bits)
 
-    def probe_total(self, data, start_t, end_t):
-        """Benchmark hook: total survivors of the unrefined probe."""
+    def probe_total(self, data, start_t, end_t, halo: int = 0):
+        """Benchmark hook: total survivors of the unrefined probe. ``halo``
+        is accepted for the reference's call form and unused: the bounds
+        say where each lane starts."""
         import torch
 
         total, _ = hits(data, torch.stack([start_t, end_t]), self.words,

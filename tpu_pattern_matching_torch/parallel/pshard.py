@@ -373,8 +373,9 @@ class DeviceShardedBloom:
         meta, bits = sharded_hits(data, bounds, self.words, self.cfg)
         return BloomHits(meta=meta, bits=bits)
 
-    def probe_total(self, data, start_t, end_t):
-        """Benchmark hook: union survivor total (runs all S probes)."""
+    def probe_total(self, data, start_t, end_t, halo: int = 0):
+        """Benchmark hook: union survivor total (runs all S probes).
+        ``halo`` is accepted for the reference's call form and unused."""
         total, _ = sharded_hits(data, torch.stack([start_t, end_t]),
                                 self.words, self.cfg)
         return total[0]

@@ -94,6 +94,28 @@ class BatchMatches:
     overflowed: bool
 
 
+def placement_device(sharding, device):
+    """The device a session places on, given the reference's ``sharding``
+    argument: None keeps ``device``; a ``torch.device`` replaces the
+    default ``"cuda"`` and must otherwise name the same device."""
+    if sharding is None:
+        return device
+    if not isinstance(sharding, torch.device):
+        raise TypeError(
+            f"sharding must be None or a torch.device, got "
+            f"{type(sharding).__name__}")
+    if isinstance(device, str) and device == "cuda":
+        return sharding
+    dev = (torch.device("cuda", device) if isinstance(device, int)
+           else torch.device(device))
+    if dev.type != sharding.type or (
+            dev.type == "cuda"
+            and resolve_device(dev) != resolve_device(sharding)):
+        raise ValueError(
+            f"sharding={sharding} contradicts device={device!r}")
+    return device
+
+
 class MatchSession:
     def __init__(
         self,
@@ -102,18 +124,25 @@ class MatchSession:
         chunk_len: int = 1024,
         max_results: int = 16,
         halo: int | None = None,
+        sharding=None,
         sort: bool = False,
         engine: str = "auto",
         bloom_opts: dict | None = None,
+        mesh=None,
         device="cuda",
         bloom_table=None,
         verify: str = "auto",
-        mesh=None,
         pat_shards: int = 1,
     ):
-        """``device``: ``"cuda"`` (default; raises when there is no GPU),
+        """The parameters are the reference's, in its order.
+
+        ``device``: ``"cuda"`` (default; raises when there is no GPU),
         ``"cpu"`` (the plain PyTorch versions of the kernels), a
         ``torch.device`` or a CUDA ordinal — never switched silently.
+        ``sharding`` (the reference's placement of a batch) is None or a
+        ``torch.device``: the placement device when ``device`` is left at
+        its default, and a ``ValueError`` when it names another device
+        than ``device``.
 
         ``engine``: "bloom" (q-gram bloom probe + exact verify), "dense"
         (the exact DFA walk of every lane on the device, with
@@ -184,6 +213,7 @@ class MatchSession:
             raise ValueError(f"unknown engine {engine!r}")
         if verify not in ("auto", "host", "device"):
             raise ValueError(f"unknown verify mode {verify!r}")
+        device = placement_device(sharding, device)
         if isinstance(bloom_table, ShardedBloom):
             if pat_shards not in (1, bloom_table.n_shards):
                 raise ValueError(

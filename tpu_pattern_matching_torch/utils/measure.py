@@ -1,7 +1,8 @@
 """Measuring a kernel on the card: the H100's peak rates, the least time a
 launch could take on its inputs (its bound), the card's name and power
 limit, and times by CUDA events and by torch.profiler traces. Used by
-``chip_smoke.py`` and ``benchmarks.exp_bloom``; no session path imports it.
+``chip_smoke.py``, ``benchmarks.exp_bloom`` and the calibrator of
+``ops.costmodel``; no session path imports it.
 """
 
 from __future__ import annotations
