@@ -171,16 +171,24 @@ Phases (any failure exits non-zero at once):
               in all and in stages 3-5, from torch.profiler traces
               (``dispatch_numbers``; after the trace phase: a profiler
               session thins the traces after it);
-14. no jax  — the port never imported jax nor the JAX package.
+10g. bench  — the port's measuring entry points (``bench``, and
+              ``benchmarks.run_configs``, ``match_dense_bench``,
+              ``bench_ushort``, ``bench_100k``, ``prefix_sum_bench``) at
+              the reference's points, each output checked
+              (``phase_bench``); it runs after phase 13, since its
+              device-time lines come from torch.profiler sessions;
+14. no jax  — the port never imported jax, the JAX package nor the
+              reference's tests.
 
-Each of phases 3-9, 10b, 10c, 10d and 10e (in each rank), 10f and 11
+Each of phases 3-9, 10b, 10c, 10d and 10e (in each rank), 10f, 10g and 11
 sets every launch count to 0 before its path and reads them after it;
 each fails unless the kernels of its path were launched. Each of phases
-7-9, 10b-10f and 11 prints its wall time. The summary's ``launches``
+7-9, 10b-10g and 11 prints its wall time. The summary's ``launches``
 are the main path's alone; it gives each kernel's launches in the
 calibration (``calibration_launches``; the phase's record:
-``calibration``), on the mesh and grid paths (``mesh_launches``) and in
-the grid ranks (``grid_launches``).
+``calibration``), on the mesh and grid paths (``mesh_launches``), in
+the grid ranks (``grid_launches``) and in each measuring entry point's
+run (``bench_launches``; phase 10g's record: ``bench``).
 The last lines are the card's name and power limit, a JSON line with the
 per-kernel summary (every kernel at each symbol width, with its bound,
 share and, for the probes, its numbers on the main path's inputs), and
@@ -1519,6 +1527,14 @@ def packet_lengths(rng, n):
     return v.astype(np.uint16)
 
 
+def write_signatures(path: str, sigs) -> str:
+    """``sigs`` as a signature file (``seq; len; name`` lines)."""
+    with open(path, "w") as f:
+        f.writelines(f"{','.join(map(str, sg))}; {len(sg)}; sig {i}\n"
+                     for i, sg in enumerate(sigs))
+    return path
+
+
 def make_ushort_workload(tmp) -> dict:
     """2,000 seeded signatures of 6-16 tokens and 64 flow files of 8 M
     tokens in all, written under ``tmp``, with the native oracle's events
@@ -1529,10 +1545,7 @@ def make_ushort_workload(tmp) -> dict:
     rng = np.random.RandomState(2000)
     sigs = [tuple(int(x) for x in packet_lengths(rng, rng.randint(6, 17)))
             for _ in range(U16_SIGS)]
-    sig_path = os.path.join(tmp, "ushort.signatures")
-    with open(sig_path, "w") as f:
-        f.writelines(f"{','.join(map(str, sg))}; {len(sg)}; sig {i}\n"
-                     for i, sg in enumerate(sigs))
+    sig_path = write_signatures(os.path.join(tmp, "ushort.signatures"), sigs)
     t0 = time.perf_counter()
     table = compile_signatures(sig_path)
     compile_s = time.perf_counter() - t0
@@ -2973,6 +2986,124 @@ def phase_calibrate(torch, bloom, kernels, MatchSession, workloads, ush, tmp,
     return launches, traces, record
 
 
+# ------------------------------------------------------------- bench phase
+
+BENCH_100K = 100_000  # bench_100k's first scale point (300k and 1M: its
+#                      own runs; the 1M DFA alone is several GB of host)
+BENCH_REFERENCE = "BENCH_r05.json"  # the reference's bench.py on a TPU
+BENCH_DRAWN = ("joint_config", "survivors_per_byte_d0",
+               "survivors_per_byte_d1e3", "refined_config", "refined_k_ref",
+               "refined_residue_per_byte_d0", "refined_residue_per_byte_d1e3")
+BENCH_SCRIPTS = {  # script: the kernels of its path at its picks
+    "bench": ("sampled", "strided", "window_walk"),
+    "run_configs": ("sampled", "strided", "window_walk", "dense_walk"),
+    "match_dense_bench": ("sampled",),
+    "bench_ushort": ("strided_u16",),
+    "bench_100k": ("sampled",),
+}
+
+
+def phase_bench(torch, kernels, ush, card_line) -> dict:
+    """10g bench: the port's measuring entry points on the card, each
+    through its module's own function at the reference's full point.
+    ``bench``: its JSON line (printed) has the reference's keys with
+    ``value`` its refined d1e3 rate, every number positive and finite;
+    the picks, survivor and residue rates and k_ref equal the reference's
+    own run on a TPU on the same draws (BENCH_r05.json, tolerance 0); the
+    joint and refined picks' d1e3 events (host and device verify) equal
+    the native oracle's. ``run_configs`` 1-6 (the data files in a
+    temporary directory, removed after): parity true in 1-3, config 4's
+    matches equal to the native oracle's events over its four files (the
+    module raises otherwise), config 5's three arms agree on a 1-rank
+    NCCL group. ``match_dense_bench`` at its defaults (each density's
+    events held to the native oracle's by the module itself);
+    ``bench_ushort`` on the ushort phase's 2,000 signatures;
+    ``bench_100k`` at 100k; ``prefix_sum_bench``. Each script's kernel
+    launches are counted from 0 (the summary's ``bench_launches``). It
+    runs after the trace and dispatch phases: its device-time lines come
+    from torch.profiler sessions, which thin the traces taken after them
+    in a process. Returns the phase's record."""
+    from tpu_pattern_matching_torch import bench
+    from tpu_pattern_matching_torch.benchmarks import (
+        bench_100k,
+        bench_ushort,
+        match_dense_bench,
+        prefix_sum_bench,
+        run_configs,
+    )
+    from tpu_pattern_matching_torch.parallel.mesh import owned_world
+
+    t_phase = time.perf_counter()
+    record = dict(launches={}, seconds={})
+
+    def timed_script(name, fn):
+        reset(kernels)
+        t0 = time.perf_counter()
+        out = fn()
+        record["seconds"][name] = time.perf_counter() - t0
+        if name in BENCH_SCRIPTS:
+            record["launches"][name] = read_launches(
+                kernels, f"bench {name}", BENCH_SCRIPTS[name])
+        print(f"[bench] {name}: {record['seconds'][name]:.2f} s", flush=True)
+        return out
+
+    events = {}
+    line = timed_script("bench", lambda: bench.run(DEVICE, record=events))
+    print(json.dumps(line), flush=True)
+    if list(line) != list(bench.KEYS):
+        fail(f"[bench] keys {list(line)} are not the reference's")
+    if line["value"] != line["refined_pipelined_bytes_per_s_d1e3"]:
+        fail("[bench] value is not refined_pipelined_bytes_per_s_d1e3")
+    bad = [k for k, v in line.items() if isinstance(v, float)
+           and not (np.isfinite(v) and v > 0) and "per_byte_d0" not in k]
+    if bad:
+        fail(f"[bench] not positive and finite: {bad}")
+    with open(os.path.join(HERE, BENCH_REFERENCE)) as f:
+        ref = json.load(f)["parsed"]
+    diff = {k: (line[k], ref[k]) for k in BENCH_DRAWN if line[k] != ref[k]}
+    if diff:
+        fail(f"[bench] differs from the reference's run on the same draws "
+             f"({BENCH_REFERENCE}): {diff}")
+    counts = bench.check_events(events)
+    print(f"[bench] picks, survivor and residue rates, k_ref == "
+          f"{BENCH_REFERENCE} (the reference's bench.py on a TPU, same "
+          f"draws); d1e3 events == native oracle: {counts} (host and "
+          f"device verify) ({card_line})", flush=True)
+    record["line"] = line
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.data.") as data_dir:
+        with owned_world():
+            lines = timed_script("run_configs", lambda: run_configs.run(
+                [1, 2, 3, 4, 5, 6], data_dir, DEVICE))
+    by = {x["config"].split("_")[0]: x for x in lines}
+    if any(by[c]["parity"] is not True for c in ("1", "2", "3")) or not (
+            by["5"]["bloom_engine_agrees"]
+            and by["5"]["device_verify_agrees"]):
+        fail(f"[bench] run_configs: {lines}")
+    record["run_configs"] = lines
+    record["match_dense_bench"] = timed_script(
+        "match_dense_bench",
+        lambda: match_dense_bench.run(device=DEVICE))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.sigs.") as d:
+        sig_path = write_signatures(os.path.join(d, "ushort.signatures"),
+                                    ush["sigs"])
+        record["bench_ushort"] = timed_script(
+            "bench_ushort", lambda: bench_ushort.run([sig_path], DEVICE))
+    print(json.dumps(record["bench_ushort"]), flush=True)
+    record["bench_100k"] = timed_script(
+        "bench_100k", lambda: bench_100k.run(BENCH_100K, DEVICE))
+    print(json.dumps(record["bench_100k"]), flush=True)
+    if not record["bench_100k"]["dense_walker_bound"]:
+        fail("[bench] bench_100k: the fast dense walker is not bound")
+    record["prefix_sum_bench"] = timed_script(
+        "prefix_sum_bench", lambda: prefix_sum_bench.run(device=DEVICE))
+    print(json.dumps(record["prefix_sum_bench"]), flush=True)
+    record["seconds_phase"] = time.perf_counter() - t_phase
+    print(f"[bench] phase wall time {record['seconds_phase']:.2f} s "
+          f"({card_line})", flush=True)
+    return record
+
+
 def main() -> None:
     import torch
 
@@ -3046,12 +3177,14 @@ def main() -> None:
                 card_line)
     calibration["calls"] = cal_traces
     phase_dispatch(torch, dispatch_sessions, card_line)
+    # phase 10g, after the traces (why: its docstring)
+    bench_record = phase_bench(torch, kernels, ush, card_line)
     imported = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "tpu_pattern_matching")]
+        "jax", "jaxlib", "tpu_pattern_matching", "tests")]
     if imported:
         fail(f"imported {imported}")
-    print("[no jax] neither jax nor the JAX package (tpu_pattern_matching) "
-          "is in sys.modules", flush=True)
+    print("[no jax] neither jax, the JAX package (tpu_pattern_matching) "
+          "nor the reference's tests is in sys.modules", flush=True)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key],
@@ -3068,6 +3201,12 @@ def main() -> None:
          # the calibration phase's share of launches
          **({"calibration_launches": cal_launches[key]}
             if cal_launches.get(key) else {}),
+         # the launches of each measuring entry point's run (phase 10g)
+         **({"bench_launches": {name: got[key] for name, got in
+                                bench_record["launches"].items()
+                                if got.get(key)}}
+            if any(got.get(key) for got in
+                   bench_record["launches"].values()) else {}),
          # the kernel's launches on the mesh phases' paths (per run)
          **({"mesh_launches": {run: got[key] for run, got in
                                mesh_launches.items() if got.get(key)}}
@@ -3092,7 +3231,9 @@ def main() -> None:
          "one_shard_ms": t["one_shard_ms"], "config": t["config"],
          "shape": t["shape"]}
         for key, t in shards.items()
-    ], "grid_launches": grid_launches, "calibration": calibration}
+    ], "grid_launches": grid_launches, "calibration": calibration,
+        "bench": {k: bench_record[k] for k in ("line", "seconds",
+                                               "seconds_phase")}}
     print(card_line)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -390,3 +390,17 @@ def test_length_trains_equal_reference(tmp_path):
     assert outs[0] == outs[1]
     assert outs[1][2].decode().splitlines() == [
         "40, -32, 287", "", "5, -1500, -0"]
+
+
+@pytest.mark.parametrize("kw", [dict(seed=31, n_lines=2000),
+                                dict(seed=55, n_lines=500, n_patterns=64),
+                                {}])
+def test_words_corpus_copy_equals_the_fixture(kw):
+    """The benchmarks' word corpus (``benchmarks.corpus``) is the
+    reference repository's ``tests.fixtures.random_words_corpus``."""
+    from tests.fixtures import random_words_corpus
+    from tpu_pattern_matching_torch.benchmarks.corpus import (
+        random_words_corpus as port_corpus,
+    )
+
+    assert port_corpus(**kw) == random_words_corpus(**kw)

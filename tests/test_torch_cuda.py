@@ -607,3 +607,19 @@ def test_small_calibration_on_cuda(cuda, tmp_path, monkeypatch):
     assert ("sampled" if byte.bft.cfg.sampled else "strided") in moved
     assert ("sampled_u16" if ushort.bft.cfg.sampled
             else "strided_u16") in moved
+
+
+def test_small_bench_on_cuda_checks_its_events(cuda):
+    """The port's bench at a small point on the card: the reference's keys,
+    positive finite rates, and each pick's d1e3 events (host and device
+    verify) equal to the native oracle's."""
+    from tpu_pattern_matching_torch import bench
+
+    record = {}
+    line = bench.run(cuda, 300, 128, 512, record)
+    assert list(line) == list(bench.KEYS)
+    assert line["value"] == line["refined_pipelined_bytes_per_s_d1e3"]
+    assert all(np.isfinite(v) and v > 0 for k, v in line.items()
+               if isinstance(v, float) and "per_byte" not in k)
+    counts = bench.check_events(record)
+    assert counts["joint"] > 0 and counts["refined"] > 0

@@ -407,6 +407,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "sys.modules['jax'] = None\n"  # any 'import jax' now raises
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['tpu_pattern_matching'] = None\n"
+        "sys.modules['tests'] = None\n"
         "from tpu_pattern_matching_torch.runtime.session import "
         "session_for_patterns\n"
         "from tpu_pattern_matching_torch.core.oracle import match_python\n"
@@ -488,8 +489,24 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "paths = length_trains.extract('trace', '.')\n"
         "assert [open(p).read() for p in paths] == "
         "['40\\n', '32\\n', '40, -32\\n']\n"
+        "import contextlib, io, json\n"
+        "from tpu_pattern_matching_torch import bench\n"
+        "from tpu_pattern_matching_torch.benchmarks import (bench_100k, "
+        "bench_ushort, match_dense_bench, prefix_sum_bench, run_configs)\n"
+        "out = io.StringIO()\n"
+        "rec = {}\n"
+        "line = bench.run('cpu', 50, 128, 256, rec)\n"
+        "assert list(line) == list(bench.KEYS), line\n"
+        "assert bench.check_events(rec)['refined'] > 0\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    assert run_configs.main(['--config', '1', '--device', "
+        "'cpu', '--data-dir', 'rc']) == 0\n"
+        "    assert prefix_sum_bench.main(['--count', '100', '--device', "
+        "'cpu']) == 0\n"
+        "lines = [json.loads(x) for x in out.getvalue().splitlines()]\n"
+        "assert lines[0]['parity'] is True, lines[0]\n"
         "mods = [m for m in sys.modules if (m.startswith('jax') or "
-        "m.split('.')[0] == 'tpu_pattern_matching') and "
+        "m.split('.')[0] in ('tpu_pattern_matching', 'tests')) and "
         "sys.modules[m] is not None]\n"
         "assert not mods, mods\n"
         "print('OK')\n"

@@ -34,3 +34,19 @@ def resolve_device(device: str | torch.device | int = "cuda") -> torch.device:
             f"{torch.cuda.device_count()} CUDA device(s) exist"
         )
     return torch.device("cuda", index)
+
+
+def entry_device(spec: str) -> torch.device:
+    """The device of a command-line entry point's ``--device``: exits 2
+    with a message naming the missing card when ``spec`` asks for a CUDA
+    device that is not there (never falls back to the CPU)."""
+    import sys
+
+    try:
+        return resolve_device(spec)
+    except RuntimeError as e:
+        why = ("no CUDA device is available (torch.cuda.is_available() is "
+               "False); pass --device cpu to run the plain PyTorch versions"
+               if not torch.cuda.is_available() else str(e))
+        print(f"ERROR: --device {spec}: {why}", file=sys.stderr)
+        sys.exit(2)

@@ -1,13 +1,15 @@
 """Measuring a kernel on the card: the H100's peak rates, the least time a
 launch could take on its inputs (its bound), the card's name and power
 limit, and times by CUDA events and by torch.profiler traces. Used by
-``chip_smoke.py``, ``benchmarks.exp_bloom`` and the calibrator of
-``ops.costmodel``; no session path imports it.
+``chip_smoke.py``, ``bench``, the scripts of ``benchmarks`` and the
+calibrator of ``ops.costmodel``; no session path imports it.
 """
 
 from __future__ import annotations
 
 import subprocess
+import sys
+import time
 
 import torch
 
@@ -52,6 +54,87 @@ def event_ms(fn, n: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+K_LO, K_HI = 1, 9  # the reference benchmarks' loop lengths
+
+
+def kloop_seconds(call, device, n: int, k_lo: int = K_LO,
+                  k_hi: int = K_HI) -> float:
+    """Seconds per call of ``call`` by the reference benchmarks' protocol:
+    ``(t(k_hi) - t(k_lo)) / (k_hi - k_lo)``, each ``t(K)`` the best of
+    ``n`` runs of K back-to-back calls, after one run of each K as a
+    warm-up. The difference cancels what a run pays once (the read-back,
+    the first launch's latency).
+
+    ``call()`` returns a device scalar (a total the call computed); a run
+    sums its K totals on the device and reads the sum with one ``.item()``
+    after the run's end, so no read-back falls inside a call. On a CUDA
+    device a run is the span of two CUDA events around its K calls (for a
+    call that is many small device operations, that is the host's enqueue
+    where it is longer than the card's work: compare ``trace_ms``); on the
+    CPU the host clock times the same runs, the read-back included."""
+    cuda = torch.device(device).type == "cuda"
+
+    def run(K: int) -> float:
+        if cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        else:
+            start = time.perf_counter()
+        acc = call().to(torch.int64)
+        for _ in range(K - 1):
+            acc = acc + call()
+        if cuda:
+            t1.record()
+            acc.item()
+            return t0.elapsed_time(t1) / 1e3
+        acc.item()
+        return time.perf_counter() - start
+
+    run(k_lo)
+    run(k_hi)
+
+    def best(K: int) -> float:
+        return min(run(K) for _ in range(n))
+
+    return (best(k_hi) - best(k_lo)) / (k_hi - k_lo)
+
+
+def timed(label: str, call, device, n: int, traced: list | None) -> float:
+    """Seconds per call of ``call`` (:func:`kloop_seconds`); the call is
+    kept in ``traced`` for :func:`log_device_times`."""
+    s = kloop_seconds(call, device, n)
+    if traced is not None:
+        traced.append((label, call, s))
+    return s
+
+
+def log_device_times(prog: str, traced: list, device) -> None:
+    """The :func:`device_time_line` of each call in ``traced`` (from
+    :func:`timed`), on stderr, after ``[prog]``."""
+    for label, call, s in traced:
+        print(f"[{prog}] {device_time_line(label, call, s, device)}",
+              file=sys.stderr, flush=True)
+
+
+def device_time_line(label: str, call, span_s: float, device,
+                     n: int = 100) -> str:
+    """One line for a timed call: its seconds per call by
+    :func:`kloop_seconds` beside, on a CUDA device, the device time of its
+    work per call from a torch.profiler trace of ``n`` calls
+    (:func:`trace_ms`) and the card's busy share of the span. Where the
+    share is low the span is the host's enqueue, not the card's work."""
+    span_ms = span_s * 1e3
+    if torch.device(device).type != "cuda":
+        return (f"{label}: {span_ms:.4f} ms a call (host clock, the plain "
+                f"versions on the cpu; no device time)")
+    ms, events = trace_ms(call, None, n)
+    return (f"{label}: {span_ms:.4f} ms a call by CUDA events (K-loop), "
+            f"{ms:.4f} ms of device work a call by torch.profiler "
+            f"({events / n:.1f} device operations a call), busy share "
+            f"{ms / span_ms if span_ms > 0 else float('nan'):.3f}")
 
 
 def trace_ms(fn, fn_name: str | None = None, n: int = 100
