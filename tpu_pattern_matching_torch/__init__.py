@@ -34,10 +34,10 @@ This package imports nothing of the reference package and never imports
 ``jax``. The reference's host modules that it needs are copied here under
 the same names (``core.*``, ``runtime.buffers``, ``runtime.verify``,
 ``runtime.feeder``, ``runtime.files``, ``runtime.stats``,
-``runtime.stager_native``, ``utils.common``, ``utils.debug``,
-``runtime.tracing.PhaseTimer``, the sentiment app's counters), with the
-native oracle and stager sources in ``csrc/``; ``tests/test_torch_copies.py``
-holds them equal to the reference.
+``runtime.stager_native``, ``utils.common``, ``utils.debug``, the
+sentiment app's counters), with the native oracle and stager sources in
+``csrc/``; ``tests/test_torch_copies.py`` holds them equal to the
+reference.
 """
 
 __version__ = "0.1.0"

@@ -31,9 +31,14 @@ import dataclasses
 import io
 import os
 import re
+import time
 from typing import BinaryIO
 
 import numpy as np
+
+from tpu_pattern_matching_torch.runtime.tracing import RECORDER
+
+_clock = time.perf_counter_ns
 
 _STAGER_OK: bool | None = None
 
@@ -85,23 +90,25 @@ class HostBatch:
     base_off: np.ndarray  # [C] int64
     chunks: int
     halo: int
+    seq: int = -1  # batch id (tracing.Recorder.next_seq), set at hand-off
 
     @property
     def payload_bytes(self) -> int:
         return int(np.sum(self.end_t.astype(np.int64)) - self.chunks * self.halo)
+
+    @property
+    def symbols(self) -> int:
+        """The live lanes' own symbols (bytes or tokens; halos left out).
+        ``payload_bytes`` sums every lane's ``end_t``, so a batch with
+        free lanes adds their halos too."""
+        n = self.chunks
+        return int(self.end_t[:n].sum(dtype=np.int64)) - n * self.halo
 
 
 class DataBuffer:
     dtype = np.uint8  # symbol width (UshortBuffer overrides)
     follow = False  # set by the feeder in -F mode (token buffers hold a
     # partial trailing number across quiescence instead of flushing it)
-    alloc_count = 0  # PROCESS-WIDE _alloc tally (class attribute, counts
-    # subclasses too): the checkable form of the databuf contract — a
-    # streaming scan allocates a fixed buffer set up front and RE-USES it
-    # via reset() no matter how long the stream (databuf.c's one-time
-    # allocation, databuf.c:76-320). tests/test_buffers.py asserts
-    # scan_stream stays within depth+1 allocations on a stream that is
-    # hundreds of batches long.
 
     def __init__(self, max_chunks: int, chunk_len: int, halo: int):
         if halo < 0 or chunk_len <= 0 or max_chunks <= 0:
@@ -112,7 +119,10 @@ class DataBuffer:
         self._alloc()
 
     def _alloc(self) -> None:
-        DataBuffer.alloc_count += 1
+        # the counter ``feed.allocs`` makes the databuf contract checkable:
+        # a streaming scan allocates a fixed buffer set up front and reuses
+        # it via reset() however long the stream (databuf.c:76-320)
+        RECORDER.add("feed.allocs")
         C, B, H = self.max_chunks, self.chunk_len, self.halo
         self.data = np.zeros((C, H + B), self.dtype)
         self.start_t = np.full(C, H, np.int32)
@@ -189,6 +199,7 @@ class DataBuffer:
                 from tpu_pattern_matching_torch.runtime import stager_native
 
                 chunks0 = self.chunks
+                t0 = _clock()
                 got, new_chunks, new_tail = stager_native.stage_stream(
                     fdno,
                     pos,
@@ -214,6 +225,8 @@ class DataBuffer:
                     stream.offset += got
                     if H:
                         stream.tail = new_tail
+                # the native read lands in the batch: no pack of its own
+                RECORDER.charge(work=got, read=_clock() - t0)
                 code = (
                     -1
                     if self.chunks >= self.max_chunks
@@ -222,14 +235,18 @@ class DataBuffer:
                 return code, got
 
         free = self.max_chunks - self.chunks
+        t0 = _clock()
         payload = fobj.read(free * B)
+        t1 = _clock()
         m = len(payload)
         if m == 0:
+            RECORDER.charge(read=t1 - t0)
             return free, 0
         if H > B:
             # halos span multiple preceding chunks: per-chunk slow path
             for k in range(0, m, B):
                 self._push(payload[k : k + B], stream)
+            RECORDER.charge(work=m, read=t1 - t0, pack=_clock() - t1)
             code = (
                 -1
                 if self.chunks >= self.max_chunks
@@ -270,6 +287,7 @@ class DataBuffer:
         tail = payload[full * B :]
         if tail:  # short EOF tail chunk (masked, not zero-scanned)
             self._push(tail, stream)
+        RECORDER.charge(work=m, read=t1 - t0, pack=_clock() - t1)
         code = (
             -1
             if self.chunks >= self.max_chunks
@@ -303,6 +321,8 @@ class DataBuffer:
                 stream.in_fragment = False
             else:
                 stream.in_fragment = True
+        # lines are read and packed one by one: the visit's bytes, no split
+        RECORDER.charge(work=rd)
         code = -1 if self.chunks >= self.max_chunks else (self.max_chunks - self.chunks)
         return code, rd, lines
 
@@ -457,16 +477,21 @@ class UshortBuffer(DataBuffer):
         the final token)."""
         if not isinstance(stream.tail, np.ndarray):
             return  # stream never produced tokens
+        t0 = _clock()
+        n = 0
         if stream.text_rem:
             toks, stream.text_rem = parse_token_stream(
                 b"", stream.text_rem, final=True, clamp=self.clamp
             )
-            if len(toks):
+            n = len(toks)
+            if n:
                 stream.pending = np.concatenate([stream.pending, toks])
+        t1 = _clock()
         while len(stream.pending) and self.chunks < self.max_chunks:
             take = stream.pending[: self.chunk_len]
             stream.pending = stream.pending[self.chunk_len :]
             self._push_tokens(take, stream)
+        RECORDER.charge(work=n, parse=t1 - t0, pack=_clock() - t1)
 
     def add_stream(self, fobj: BinaryIO, stream: StreamState) -> tuple[int, int]:
         """Text-to-token ingest. Returns (code, raw_text_bytes_read)."""
@@ -477,10 +502,15 @@ class UshortBuffer(DataBuffer):
             stream.text_off = 0  # raw read position (offset counts TOKENS)
         B = self.chunk_len
         rd = 0
+        # self-times of the reads, parses and lane packing, and the tokens
+        # parsed, charged once to the enclosing span (``feed.file``)
+        t_read = t_parse = t_pack = n_tok = 0
         while self.chunks < self.max_chunks:
             quiescent = False
             while len(stream.pending) < B and not quiescent:
+                t0 = _clock()
                 raw = fobj.read(max(4096, B * 8))
+                t1 = _clock()
                 rd += len(raw)
                 stream.text_off += len(raw)
                 # b"" is a true end of stream only for a seekable source
@@ -496,16 +526,24 @@ class UshortBuffer(DataBuffer):
                 toks, stream.text_rem = parse_token_stream(
                     raw, stream.text_rem, final=at_end, clamp=self.clamp
                 )
+                t2 = _clock()
                 if len(toks):
                     stream.pending = np.concatenate([stream.pending, toks])
+                t_read += t1 - t0
+                t_parse += t2 - t1
+                t_pack += _clock() - t2
+                n_tok += len(toks)
                 quiescent = raw == b""
             if len(stream.pending) == 0:
                 break
+            t0 = _clock()
             take = stream.pending[:B]
             stream.pending = stream.pending[B:]
             self._push_tokens(take, stream)
+            t_pack += _clock() - t0
             if quiescent and len(stream.pending) == 0:
                 break
+        RECORDER.charge(work=n_tok, read=t_read, parse=t_parse, pack=t_pack)
         code = (
             -1
             if self.chunks >= self.max_chunks

@@ -29,8 +29,10 @@ import queue
 import select
 import stat
 import threading
+import time
 
 from tpu_pattern_matching_torch.runtime.buffers import DataBuffer, HostBatch, StreamState
+from tpu_pattern_matching_torch.runtime.tracing import RECORDER
 
 
 @dataclasses.dataclass
@@ -154,22 +156,55 @@ class Feeder:
     # ------------------------------------------------------------- workers
 
     def _worker(self, wid: int) -> None:
-        buf = self.buffer_factory(self.max_chunks, self.chunk_len, self.halo)
+        """Spans (``runtime/tracing.py``): ``feed.worker`` over the
+        thread's life; ``feed.batch`` per flushed batch, from the end of
+        the one before to the end of its ``feed.put``, with the thread's
+        CPU ns; ``feed.file`` per visit to a file within one batch (a
+        visit that fills the buffer ends at the flush and goes on in the
+        next batch), into which the buffer charges its read, parse and
+        pack self-times and the symbols it made."""
+        rec = RECORDER
+        worker = rec.begin("feed.worker")
+        batch = rec.begin("feed.batch", seq=rec.next_seq())
+        cpu0 = time.thread_time_ns()
+        with rec.span("feed.alloc"):
+            buf = self.buffer_factory(self.max_chunks, self.chunk_len,
+                                      self.halo)
         buf.follow = self.follow  # token buffers hold partial trailing
         # numbers across follow-mode quiescence (flushed by finalize below)
         streams: dict[int, StreamState] = {}
         handles: dict[int, object] = {}
         pend_bytes = 0
         pend_lines = 0
+        visit = None  # the open feed.file span
 
         def flush():
-            nonlocal pend_bytes, pend_lines
-            if buf.chunks:
+            nonlocal pend_bytes, pend_lines, batch, cpu0, visit
+            if not buf.chunks:
+                return
+            if visit is not None:
+                rec.end(visit)
+            with rec.span("feed.alloc"):
                 # hand off the arrays; allocate a fresh buffer for reuse
-                self.q.put(FeedItem(buf.to_batch(), pend_lines, pend_bytes))
+                hb = buf.to_batch()
+                hb.seq = batch.seq
                 buf._alloc()
-                pend_bytes = 0
-                pend_lines = 0
+            batch.work = hb.symbols
+            item = FeedItem(hb, pend_lines, pend_bytes)
+            t0 = time.perf_counter_ns()
+            self.q.put(item)
+            t1 = time.perf_counter_ns()
+            rec.record("feed.put", t0, t1)
+            batch.add("put", t1 - t0)
+            batch.add("cpu", time.thread_time_ns() - cpu0)
+            batch.add("threads", self.n_workers)
+            rec.end(batch, t1)
+            pend_bytes = 0
+            pend_lines = 0
+            batch = rec.begin("feed.batch", seq=rec.next_seq())
+            cpu0 = time.thread_time_ns()
+            if visit is not None:
+                visit = rec.begin("feed.file")
 
         gw0 = self.process_id * self.n_workers + wid  # global worker id
         step = self.num_processes * self.n_workers
@@ -181,12 +216,15 @@ class Feeder:
                 while cur < len(self.filenames):
                     if self.terminate.is_set():
                         break
+                    visit = rec.begin("feed.file")
                     if cur not in handles:
                         from tpu_pattern_matching_torch.utils.debug import dprint
 
                         dprint(2, "feeder[%d]: open %s", wid,
                                self.filenames[cur])
+                        t0 = time.perf_counter_ns()
                         handles[cur] = _open_input(self.filenames[cur])
+                        visit.add("open", time.perf_counter_ns() - t0)
                         streams[cur] = StreamState(file_id=cur)
                     elif handles[cur].seekable():
                         # follow mode, regular file: pick up appended data
@@ -214,6 +252,8 @@ class Feeder:
                             continue
                         if rd == 0:
                             break
+                    rec.end(visit)
+                    visit = None
                     cur += step
                 if not self.follow:
                     break
@@ -228,10 +268,16 @@ class Feeder:
             # shutdown: flush held parse state (a partial trailing number a
             # token stream was holding for a possible later append) before
             # the final batch leaves
+            visit = rec.begin("feed.file")
             for st in streams.values():
                 if buf.full:
                     flush()
                 buf.finalize_stream(st)
+            if visit.work:
+                rec.end(visit)
+            else:  # nothing was held back
+                rec.drop(visit)
+            visit = None
             flush()
         except BaseException as e:  # fail loud (reference ERRX discipline)
             fname = (
@@ -241,18 +287,22 @@ class Feeder:
             )
             self.q.put(FeedError(filename=fname, error=e))
         finally:
-            for h in handles.values():
-                try:
-                    h.close()
-                except Exception:
-                    pass
+            rec.drop(batch)  # the batch after the last flush: empty
+            with rec.span("feed.close", work=len(handles)):
+                for h in handles.values():
+                    try:
+                        h.close()
+                    except Exception:
+                        pass
+            rec.end(worker)
             self.q.put(_SENTINEL)
 
     # ----------------------------------------------------------------- API
 
     def start(self) -> None:
         for wid in range(self.n_workers):
-            t = threading.Thread(target=self._worker, args=(wid,), daemon=True)
+            t = threading.Thread(target=self._worker, args=(wid,),
+                                 name=f"feeder-{wid}", daemon=True)
             t.start()
             self._threads.append(t)
 
@@ -260,9 +310,18 @@ class Feeder:
         self.terminate.set()
 
     def __iter__(self):
+        """The workers' batches; each wait on the queue is a ``feed.wait``
+        span, and the counter ``feed.queued`` adds the queue's length at
+        each get."""
         done = 0
         while done < self.n_workers:
+            queued = self.q.qsize()
+            t0 = time.perf_counter_ns()
             item = self.q.get()
+            t1 = time.perf_counter_ns()
+            RECORDER.add("feed.queued", queued)
+            RECORDER.record("feed.wait", t0, t1, seq=item.batch.seq
+                            if isinstance(item, FeedItem) else -1)
             if item is _SENTINEL:
                 done += 1
                 continue

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import time
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -62,6 +63,7 @@ from tpu_pattern_matching_torch.ops.compact import (
     per_group_counts,
 )
 from tpu_pattern_matching_torch.parallel.mesh import MeshDenseMatches
+from tpu_pattern_matching_torch.runtime.tracing import RECORDER
 from tpu_pattern_matching_torch.utils.device import resolve_device
 
 
@@ -421,17 +423,31 @@ class MatchSession:
         rank's lane shard, the probe's ``meta`` is ``[global total, max
         per-rank total]`` and the dense step gives ``MeshDenseMatches``.
         On the grid the column leader's ``batch`` is broadcast over the
-        column, and ``bits`` are the column's union."""
+        column, and ``bits`` are the column's union.
+
+        Spans: ``scan`` > ``scan.upload``, ``scan.probe``; the result
+        carries the scan's start for ``decode``'s ``batch`` span."""
+        seq = getattr(batch, "seq", -1)
+        work = batch.symbols
+        with RECORDER.span("scan", seq, work) as sp:
+            with RECORDER.span("scan.upload", work=work):
+                data = torch.from_numpy(batch.data).to(self.device)
+                bounds = torch.from_numpy(
+                    np.stack([batch.start_t, batch.end_t])
+                ).to(self.device)
+                if self._grid is not None:  # the column's leader feeds
+                    # its lanes as bytes: neither gloo nor NCCL has uint16
+                    self._grid.col.broadcast(data.view(torch.uint8))
+                    self._grid.col.broadcast(bounds)
+            with RECORDER.span("scan.probe", work=work):
+                comp = self._scan_on_device(batch, data, bounds)
+        comp.scan_t0 = sp.t0
+        return comp
+
+    def _scan_on_device(self, batch: HostBatch, data, bounds):
+        """The device engine on one uploaded batch (``scan``)."""
         from tpu_pattern_matching_torch.ops.compact import scan_and_compact
 
-        data = torch.from_numpy(batch.data).to(self.device)
-        bounds = torch.from_numpy(
-            np.stack([batch.start_t, batch.end_t])
-        ).to(self.device)
-        if self._grid is not None:  # the column's leader feeds its lanes
-            # as bytes: neither gloo nor NCCL has a uint16 type
-            self._grid.col.broadcast(data.view(torch.uint8))
-            self._grid.col.broadcast(bounds)
         if self._dense_step is not None:
             return self._dense_step(data, bounds)
         if self.dev is not None:
@@ -453,14 +469,32 @@ class MatchSession:
     def decode(self, batch: HostBatch, comp) -> BatchMatches:
         """Exact events of one batch; for the dense engine at most two
         transfers: ``meta``, then the packed tuples only when matches
-        exist."""
+        exist.
+
+        Spans: ``decode`` > ``decode.sync``, ``decode.rows``,
+        ``decode.verify``, ``decode.events``; then ``batch``, from the
+        batch's ``scan`` start to here."""
+        seq = getattr(batch, "seq", -1)
+        work = batch.symbols
+        with RECORDER.span("decode", seq, work):
+            bm = self._decode(batch, comp)
+        t0 = getattr(comp, "scan_t0", None)
+        if t0 is not None:
+            RECORDER.record("batch", t0, time.perf_counter_ns(), seq, work)
+        return bm
+
+    def _decode(self, batch: HostBatch, comp) -> BatchMatches:
         if isinstance(comp, BloomHits):
             return self._decode_bloom(batch, comp)
         if isinstance(comp, MeshDenseMatches):
             return self._decode_dense_mesh(batch, comp)
-        total, reported = (int(x) for x in comp.meta.cpu())
+        with RECORDER.span("decode.sync"):
+            total, reported = (int(x) for x in comp.meta.cpu())
+        with RECORDER.span("decode.events"):
+            events = self._dense_events(batch, comp.packed, reported)
+        RECORDER.add("verify.events", len(events))
         return BatchMatches(
-            events=self._dense_events(batch, comp.packed, reported),
+            events=events,
             total=total,
             reported=reported,
             overflowed=total > reported,
@@ -548,13 +582,15 @@ class MatchSession:
             next_cap,
         )
 
-        total = int(comp.meta[0])
+        with RECORDER.span("decode.sync"):
+            total = int(comp.meta[0])
         bl = self._bloom
         if bl.exact is not None and total > bl.k_ref:
             # the probe passed the unrefined bitmap through (absorbed by
             # the host verify); a refined total never exceeds k_ref, so
             # the check is exact
             self.refine_overflows += 1
+            RECORDER.add("refine.overflows")
             if bl.k_ref < MAX_DEVICE_CAND:
                 bl.k_ref = int(min(MAX_DEVICE_CAND, next_cap(total)))
                 dprint(1, "bloom refine overflow (%d candidates): k_ref -> %d",
@@ -562,13 +598,17 @@ class MatchSession:
         return total
 
     def _verify(self, batch: HostBatch, comp: BloomHits, total: int):
-        if total:
-            rows, lanes = self._candidate_rows(comp)
-        else:
-            rows = lanes = np.zeros(0, np.int64)
-        return rows, lanes, self._verifier.verify_batch_arrays(
-            batch.data, lanes, rows, batch.halo, batch.start_t, batch.end_t
-        )
+        with RECORDER.span("decode.rows"):
+            if total:
+                rows, lanes = self._candidate_rows(comp)
+            else:
+                rows = lanes = np.zeros(0, np.int64)
+        RECORDER.add("verify.candidates", len(rows))
+        with RECORDER.span("decode.verify", work=len(rows)):
+            arr = self._verifier.verify_batch_arrays(
+                batch.data, lanes, rows, batch.halo, batch.start_t,
+                batch.end_t)
+        return rows, lanes, arr
 
     def _device_verify(self, comp: BloomHits, total: int):
         """The device verify stage of one batch: ``(meta, (lanes, ends,
@@ -651,11 +691,15 @@ class MatchSession:
         if self._dvf is not None:
             n_ev = 0
             if total:  # on a mesh the global total: every rank verifies
-                meta, (ln_a, e_a, st_a), _gc = self._device_verify(comp,
-                                                                   total)
+                with RECORDER.span("decode.verify", work=total):
+                    meta, (ln_a, e_a, st_a), _gc = self._device_verify(
+                        comp, total)
                 n_ev = int(meta[0])
-                gid_a = self.table.state_gid[st_a]
-                events = self._events_from_arrays(batch, ln_a, e_a, gid_a)
+                with RECORDER.span("decode.events"):
+                    gid_a = self.table.state_gid[st_a]
+                    events = self._events_from_arrays(batch, ln_a, e_a,
+                                                      gid_a)
+                RECORDER.add("verify.events", len(events))
             return BatchMatches(
                 events=events,  # on a mesh, this rank's lanes
                 total=n_ev,  # on a mesh, every rank's
@@ -663,6 +707,21 @@ class MatchSession:
                 overflowed=False,
             )
         rows, lanes, arr = self._verify(batch, comp, total)
+        with RECORDER.span("decode.events"):
+            events = self._host_events(batch, rows, lanes, arr)
+        RECORDER.add("verify.events", len(events))
+        return BatchMatches(
+            events=events,
+            total=len(events),
+            reported=len(events),
+            overflowed=False,
+        )
+
+    def _host_events(self, batch: HostBatch, rows, lanes, arr
+                     ) -> list[MatchEvent]:
+        """MatchEvents of host verify's walker output ``arr`` (or, without
+        the native walker, of its tuple fallback over ``rows``/``lanes``)."""
+        events = []
         if arr is not None:
             ln_a, e_a, st_a = arr
             gid_a = self.table.state_gid[st_a]
@@ -688,12 +747,7 @@ class MatchSession:
                 )
             if self.sort:
                 events.sort(key=lambda ev: (ev.file_id, ev.end_offset))
-        return BatchMatches(
-            events=events,
-            total=len(events),
-            reported=len(events),
-            overflowed=False,
-        )
+        return events
 
     def decode_counts(
         self, batch: HostBatch, comp
@@ -793,6 +847,7 @@ class MatchSession:
                 buf.finalize_stream(stream)
             if buf.chunks and (code == -1 or eof):
                 batch = buf.to_batch()
+                batch.seq = RECORDER.next_seq()
                 pending.append((batch, self.scan(batch)))
                 if len(pending) > depth:
                     yield self.decode(*pending.popleft())

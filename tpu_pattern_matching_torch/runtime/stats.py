@@ -5,6 +5,8 @@ from __future__ import annotations
 import dataclasses
 import json
 
+from tpu_pattern_matching_torch.runtime.tracing import RECORDER
+
 
 @dataclasses.dataclass
 class RunStats:
@@ -17,6 +19,11 @@ class RunStats:
     automaton_states: int = 0
     automaton_bytes: int = 0
     wall_us: int = 0
+
+    def __post_init__(self):
+        # the recorder's state when the run began (not a field: the STATS
+        # block and the JSON's fields stay the reference's)
+        self._trace_from = (RECORDER.totals(), RECORDER.counters())
 
     @property
     def throughput_mbps(self) -> float:
@@ -48,6 +55,10 @@ class RunStats:
         return "\n".join(out)
 
     def to_json(self) -> str:
+        """The fields, the throughput, and this process's span totals
+        (``spans``: name -> count, ms, work) and counters (``counters``)
+        since the stats were made (``runtime/tracing.py``)."""
         d = dataclasses.asdict(self)
         d["throughput_mbps"] = self.throughput_mbps
+        d.update(RECORDER.report(since=self._trace_from))
         return json.dumps(d)

@@ -189,17 +189,20 @@ def run_ushort_grep(args, device) -> int:
     except ValueError:  # not the main thread (library embedding)
         pass
 
-    feeder.start()
-    # depth-1 pipeline in follow mode: a held batch's matches would wait
-    # for the NEXT batch, which a quiet stream may never produce
-    depth = 1 if getattr(args, "follow", False) else 2
-    pending: deque = deque()
-    for item in rank_batches(sess, feeder):
-        pending.append((item, sess.scan(item.batch)))
-        if len(pending) >= depth:
+    from tpu_pattern_matching_torch.runtime.tracing import device_trace
+
+    with device_trace(getattr(args, "profile", None)):
+        feeder.start()
+        # depth-1 pipeline in follow mode: a held batch's matches would
+        # wait for the NEXT batch, which a quiet stream may never produce
+        depth = 1 if getattr(args, "follow", False) else 2
+        pending: deque = deque()
+        for item in rank_batches(sess, feeder):
+            pending.append((item, sess.scan(item.batch)))
+            if len(pending) >= depth:
+                consume(*pending.popleft())
+        while pending:
             consume(*pending.popleft())
-    while pending:
-        consume(*pending.popleft())
     stats.wall_us = now_us() - start
     if reduce_stats(sess, stats):
         print(stats.render())
