@@ -161,27 +161,44 @@ def fill_batches(mod, kind, path, chunk_len=64, max_chunks=8, halo=7):
                 return out
 
 
-@pytest.mark.parametrize("kind", ["binary", "text", "ushort"])
-def test_buffer_batches_equal(tmp_path, kind):
+@pytest.mark.parametrize("kind,native", [
+    ("binary", True), ("text", True), ("ushort", True), ("ushort", False),
+    ("ushort-long", True), ("ushort-long", False)],
+    ids=["binary", "text", "ushort", "ushort-numpy", "ushort-long",
+         "ushort-long-numpy"])
+def test_buffer_batches_equal(tmp_path, monkeypatch, kind, native):
+    """``ushort`` runs the port's native token parse, ``-numpy`` its NumPy
+    parse (``TPM_NO_NATIVE_STAGER=1``); ``-long`` is a flow text of
+    over 64 KiB in 16 KiB reads, so numbers straddle the reads."""
+    if not native:
+        monkeypatch.setenv("TPM_NO_NATIVE_STAGER", "1")
     rng = np.random.RandomState(9)
     path = tmp_path / "input"
+    kw = {}
     if kind == "ushort":
         path.write_text(",".join(map(str, rng.randint(0, 3000, size=1500))))
+    elif kind == "ushort-long":
+        toks = rng.choice([0, 1460, 2047, 2048, 65535, 65536, 99999],
+                          size=40_000)
+        path.write_text(", ".join(map(str, toks)))
+        assert path.stat().st_size > 64 * 1024
+        kind, kw = "ushort", dict(chunk_len=2048)  # reads of 8 * 2048
     elif kind == "text":
         lines = [rand_bytes(i, int(n), hi=120).replace(b"\n", b"")
                  for i, n in enumerate(rng.randint(0, 150, size=40))]
         path.write_bytes(b"\n".join(lines) + b"\nno newline at the end")
     else:
         path.write_bytes(rand_bytes(10, 3000))
-    ref = fill_batches(ref_buffers, kind, str(path))
-    port = fill_batches(port_buffers, kind, str(path))
+    ref = fill_batches(ref_buffers, kind, str(path), **kw)
+    port = fill_batches(port_buffers, kind, str(path), **kw)
     assert len(ref) == len(port) > 1
     for r, p in zip(ref, port):
         for x, y in zip(r, p):
             np.testing.assert_array_equal(np.asarray(y), np.asarray(x))
-    if kind == "binary":  # the native stager's path, then the numpy one
-        assert port_buffers._native_stager_ok() == \
-            ref_buffers._native_stager_ok()
+    # the native stager's path (the byte reads, the token parse), or the
+    # numpy one
+    assert port_buffers._native_stager_ok() == \
+        ref_buffers._native_stager_ok()
 
 
 def test_oracles_and_verifier_events_equal():

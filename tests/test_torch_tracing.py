@@ -7,7 +7,8 @@ profiler's axis, and the benchmark's readers of them, on the CPU.
 - A ushort CLI run over a few flow files: every batch id in ``feed.batch``,
   ``feed.wait``, ``scan``, ``decode`` and ``batch``; the ``feed.file``
   visits' tokens sum to the tokens scanned; the byte feed alike;
-  ``--json-stats`` carries the span totals and counters; ``--ushort
+  ``--json-stats`` carries the span totals and counters, the parse's
+  ``parse.native_tokens`` or ``parse.numpy_tokens`` among them; ``--ushort
   --profile`` writes one Chrome trace holding the torch ops and the
   program's spans of the main and feeder threads on one axis.
 - ``perfbench/program_trace.py``: under ``torch.profiler``, each ``scan``
@@ -233,6 +234,26 @@ def test_byte_feed_visits_count_bytes(tmp_path, capsys, monkeypatch, native):
     assert sum(r.work for r in spans if r.name == "scan") == total
     assert all(r.parts["read"] > 0 for r in visits if r.work)
     assert json.loads(out.splitlines()[-1])["matches_total"] == 3
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["stager", "numpy"])
+def test_ushort_parse_counters_name_the_path(tmp_path, capsys, monkeypatch,
+                                             native):
+    if not native:
+        monkeypatch.setenv("TPM_NO_NATIVE_STAGER", "1")
+    tokens = write_flows(tmp_path / "flows", n_files=3)
+    (tmp_path / "sigs").write_text(SIGS)
+    _lo, out = run_cli(["-f", str(tmp_path / "flows"), "-p",
+                        str(tmp_path / "sigs"), "--ushort", "-B", "128",
+                        "-G", "8", "-w", "2", "--json-stats"], capsys)
+    stats = json.loads(out.splitlines()[-1])
+    counters = stats["counters"]
+    assert stats["spans"]["feed.file"]["work"] == tokens
+    used, unused = (("parse.native_tokens", "parse.numpy_tokens") if native
+                    else ("parse.numpy_tokens", "parse.native_tokens"))
+    assert counters[used] == tokens
+    assert counters.get(unused, 0) == 0
+    assert stats["matches_total"] == 3
 
 
 def test_ushort_profile_writes_one_trace_on_one_axis(tmp_path, capsys):

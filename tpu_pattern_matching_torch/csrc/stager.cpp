@@ -6,6 +6,10 @@
 // Plays the role of the reference's databuf_add_fd read path
 // (databuf.c:326-407) at native speed; the Python/NumPy path remains as the
 // portable fallback.
+//
+// parse_tokens is the ushort feed's text-to-token parse
+// (runtime/buffers.py parse_token_stream), the role of the reference's
+// per-line strtol loop (AC_ushorts/databuf.c:154-190).
 
 #include <cerrno>
 #include <cstdint>
@@ -131,6 +135,46 @@ int64_t stage_stream(int32_t fd, int64_t file_offset, const uint8_t *tail,
 
     *chunks_out = lane;
     return total;
+}
+
+// Parses the text rem + raw (two spans, never joined) into uint16 tokens:
+// every maximal run of ASCII digits is one token of value
+// min(int(run) & 0xFFFF, clamp); every other byte separates. Horner's rule
+// masked to 16 bits at each step gives int(run) & 0xFFFF for a run of any
+// length. Unless final, a trailing digit run is held back: its start (an
+// index into rem + raw) goes to *held, which is rem_len + raw_len when
+// nothing is held. out has room for (rem_len + raw_len + 1) / 2 tokens.
+// Returns the number of tokens written.
+int64_t parse_tokens(const uint8_t *rem, int64_t rem_len, const uint8_t *raw,
+                     int64_t raw_len, int32_t final, uint32_t clamp,
+                     uint16_t *out, int64_t *held) {
+    const uint8_t *span[2] = {rem, raw};
+    const int64_t len[2] = {rem_len, raw_len};
+    int64_t n = 0, base = 0;
+    int64_t start = -1;  // start of the open digit run; -1 outside one
+    uint32_t v = 0;
+    for (int s = 0; s < 2; base += len[s], ++s) {
+        const uint8_t *p = span[s];
+        for (int64_t i = 0; i < len[s]; ++i) {
+            uint32_t d = (uint32_t)p[i] - '0';
+            if (d < 10) {
+                if (start < 0) {
+                    start = base + i;
+                    v = 0;
+                }
+                v = (v * 10 + d) & 0xFFFF;
+            } else if (start >= 0) {
+                out[n++] = (uint16_t)std::min(v, clamp);
+                start = -1;
+            }
+        }
+    }
+    if (start >= 0 && final) {
+        out[n++] = (uint16_t)std::min(v, clamp);
+        start = -1;
+    }
+    *held = start >= 0 ? start : base;
+    return n;
 }
 
 }  // extern "C"

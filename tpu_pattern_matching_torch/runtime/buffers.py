@@ -44,8 +44,9 @@ _STAGER_OK: bool | None = None
 
 
 def _native_stager_ok() -> bool:
-    """Native preadv stager availability (cached; TPM_NO_NATIVE_STAGER=1
-    forces the NumPy path, e.g. to exercise both in tests)."""
+    """Native preadv stager and token parse availability (cached;
+    TPM_NO_NATIVE_STAGER=1 forces the NumPy paths, e.g. to exercise both
+    in tests)."""
     global _STAGER_OK
     if os.environ.get("TPM_NO_NATIVE_STAGER"):
         return False
@@ -412,8 +413,14 @@ def parse_token_stream(
     number cut by the read boundary, so it is held back in ``rem`` until
     the next read (or emitted when ``final``). Values clamp to
     ``clamp`` (the reference indexes its table out of bounds for
-    >= alphabet values — UB we don't reproduce).
+    >= alphabet values — UB we don't reproduce). Parsed natively, with the
+    interpreter lock released, when the stager library loads; by the NumPy
+    ``_parse_digit_runs`` otherwise (``TPM_NO_NATIVE_STAGER=1``).
     """
+    if _native_stager_ok():
+        from tpu_pattern_matching_torch.runtime import stager_native
+
+        return stager_native.parse_tokens(bytes(raw), rem, final, clamp)
     buf = rem + raw
     if not final:
         k = len(buf)
@@ -425,6 +432,13 @@ def parse_token_stream(
     if not buf:
         return np.zeros(0, np.uint16), rem
     return _parse_digit_runs(buf, clamp), rem
+
+
+def _count_parsed(n: int) -> None:
+    """Add ``n`` feed tokens to the counter of the parse that made them:
+    ``parse.native_tokens`` or ``parse.numpy_tokens``."""
+    RECORDER.add("parse.native_tokens" if _native_stager_ok()
+                 else "parse.numpy_tokens", n)
 
 
 class UshortBuffer(DataBuffer):
@@ -492,6 +506,7 @@ class UshortBuffer(DataBuffer):
             stream.pending = stream.pending[self.chunk_len :]
             self._push_tokens(take, stream)
         RECORDER.charge(work=n, parse=t1 - t0, pack=_clock() - t1)
+        _count_parsed(n)
 
     def add_stream(self, fobj: BinaryIO, stream: StreamState) -> tuple[int, int]:
         """Text-to-token ingest. Returns (code, raw_text_bytes_read)."""
@@ -544,6 +559,7 @@ class UshortBuffer(DataBuffer):
             if quiescent and len(stream.pending) == 0:
                 break
         RECORDER.charge(work=n_tok, read=t_read, parse=t_parse, pack=t_pack)
+        _count_parsed(n_tok)
         code = (
             -1
             if self.chunks >= self.max_chunks

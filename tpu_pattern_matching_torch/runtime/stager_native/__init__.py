@@ -1,10 +1,11 @@
 """ctypes wrapper for the native batch stager (copy of the reference's
-``runtime/stager_native``).
+``runtime/stager_native``) and the ushort feed's native token parse.
 
 ``csrc/stager.cpp`` is built with g++ into the package's ``_build/`` on
 demand, by the kernel loader (``ops/kernels.py``). Callers fall back to
 the NumPy path when the build or the preconditions (real fd, H <= B)
-don't hold.
+don't hold. A ``CDLL`` call releases the interpreter lock for its whole
+length, so two feeder threads parse and stage at once.
 """
 
 from __future__ import annotations
@@ -38,6 +39,17 @@ def _bind(lib) -> None:
         ctypes.c_void_p,  # tail_out
         ctypes.c_void_p,  # tail_out_len
         ctypes.c_void_p,  # chunks_out
+    ]
+    lib.parse_tokens.restype = ctypes.c_int64
+    lib.parse_tokens.argtypes = [
+        ctypes.c_char_p,  # rem
+        ctypes.c_int64,  # rem_len
+        ctypes.c_char_p,  # raw
+        ctypes.c_int64,  # raw_len
+        ctypes.c_int32,  # final
+        ctypes.c_uint32,  # clamp
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # held
     ]
 
 
@@ -100,3 +112,19 @@ def stage_stream(
     if got < 0:
         raise OSError("stage_stream read error")
     return int(got), int(chunks_out.value), bytes(tail_out[: tail_out_len.value])
+
+
+def parse_tokens(
+    raw: bytes, rem: bytes, final: bool, clamp: int
+) -> tuple[np.ndarray, bytes]:
+    """``runtime.buffers.parse_token_stream`` in native code: the tokens of
+    ``rem + raw`` and the new held digit run (``rem`` and ``raw`` are
+    passed as two spans, not joined)."""
+    lib = _lib()
+    out = np.empty((len(rem) + len(raw) + 1) // 2, np.uint16)
+    held = ctypes.c_int64(0)
+    n = lib.parse_tokens(rem, len(rem), raw, len(raw), final, clamp,
+                         out.ctypes.data, ctypes.byref(held))
+    h = held.value - len(rem)
+    rem = raw[h:] if h >= 0 else rem[h:] + raw
+    return out[:n], rem

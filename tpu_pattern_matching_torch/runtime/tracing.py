@@ -23,8 +23,10 @@ Spans and counters by layer:
   parts ``open``, ``read``, ``parse``, ``pack``; work, the symbols it
   produced), ``feed.alloc`` (batch hand-off and a fresh buffer),
   ``feed.put`` (blocked on the full queue), ``feed.close`` (closing the
-  worker's files at its end); counter ``feed.allocs`` (buffers
-  allocated, every ``DataBuffer._alloc``). On the consumer: ``feed.wait``
+  worker's files at its end); counters ``feed.allocs`` (buffers
+  allocated, every ``DataBuffer._alloc``) and ``parse.native_tokens``,
+  ``parse.numpy_tokens`` (the ushort tokens each parse path made, charged
+  with the visit's ``parse``). On the consumer: ``feed.wait``
   (blocked in the queue's ``get``) and counter ``feed.queued`` (the
   queue's length at each get, summed).
 - session scan: ``scan`` > ``scan.upload`` (the copies to the device),
