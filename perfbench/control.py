@@ -1,12 +1,19 @@
-"""The check's control: the plain reference put in the program's place
-and computed at the precision below the one the configuration states.
-The configuration's tokens are packet lengths of an alphabet of 2048
-(11 bits, held in 16); the control holds them in 8 bits, clamped to 255
-as the CLI's parse clamps a number past the alphabet to 2047, in
-signatures and flows alike (the step that would tempt a later PR: the
-byte kernels scan half the data). Each lane is matched with its halo, so
-only the precision differs. The check has to find such a run not
-correct.
+"""The check's control: the plain reference put in the program's place,
+one step below what the configuration states, by its ``unit``.
+
+- ``tokens``: the tokens are packet lengths of an alphabet of 2048 (11
+  bits, held in 16); the control holds them in 8 bits, clamped to 255 as
+  the CLI's parse clamps a number past the alphabet to 2047, in
+  signatures and flows alike (the step that would tempt a later PR: the
+  byte kernels scan half the data).
+- ``bytes``: every signature cut one byte below the length the
+  configuration states (11 bytes where ``-m 12`` holds 12), the
+  guarantee that would tempt a later PR: a shorter exact comparison. It
+  reports each occurrence at the end of its first 11 bytes and takes
+  near misses for events.
+
+Each lane is matched with its halo, so only that step differs. The check
+has to find such a run not correct.
 
     python3 -m perfbench.control --workload NAME --seeds A,B,C --seconds S
 
@@ -79,8 +86,28 @@ class Narrow:
                 for f, x, q in zip(fid, end, np.split(p, cut))]
 
 
+class Short(Narrow):
+    """:class:`Narrow` at 8 bits (the byte data pass through unchanged),
+    with the signatures one byte shorter than the configuration's
+    length."""
+
+    def __init__(self, sess, inputs):
+        self._mesh_ctx, self._grid = sess._mesh_ctx, sess._grid
+        self.global_totals = False
+        self.device = sess.device
+        cut = max(len(s) for s in inputs.ref_sigs) - 1
+        self.m = Matcher([s[:cut] for s in inputs.ref_sigs], 8, sess.device)
+
+
 def narrow_tokens(sess, inputs):
     return Narrow(sess, inputs), np.arange(len(inputs.sigs))
+
+
+def short_signatures(sess, inputs):
+    return Short(sess, inputs), np.arange(len(inputs.sigs))
+
+
+STAND_INS = {"tokens": narrow_tokens, "bytes": short_signatures}
 
 
 def main(argv=None) -> int:
@@ -99,10 +126,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("perfbench.control: no CUDA card", file=sys.stderr)
         return 2
+    stand_in = STAND_INS[cell.config["unit"]]
     for seed in (int(s) for s in a.seeds.split(",")):
         line, numbers = run_cell(cell, seed, a.seconds, False, "cuda",
-                                 stand_in=narrow_tokens)
-        print(json.dumps({"control": "narrow_tokens", "workload": a.workload,
+                                 stand_in=stand_in)
+        print(json.dumps({"control": stand_in.__name__,
+                          "workload": a.workload,
                           "seed": seed, "correct": line["correct"],
                           "attempted": line["attempted"],
                           "numbers": {k: v[0] for k, v in numbers.items()}}),

@@ -10,13 +10,19 @@ it opens at its first batch's feed wait (``done[0] - latency[0] -
 feed_wait[0]``) and closes at its last decode's return (``done[-1]``).
 The trace of the profiled batches (``run["trace"]``) is in microseconds
 on the profiler's axis; ``offset_us`` places the recorder there by the
-``scan`` calls that both saw."""
+``scan`` calls that both saw.
+
+A reader names the unit it reads (``"tokens"`` or ``"bytes"``, the
+configuration's ``unit``) and gets nothing from a run of the other."""
 
 from __future__ import annotations
 
 import bisect
 import statistics
 import sys
+
+from perfbench.readings import GIB
+
 
 def recorder():
     """The program's recorder, or None where it has none."""
@@ -47,15 +53,37 @@ def window_ns(run: dict) -> tuple[int, int] | None:
     return int(lo * 1e9), int(rec.done[-1] * 1e9)
 
 
-def window_spans(run: dict, names) -> list | None:
+def window_spans(run: dict, names, unit: str = "tokens") -> list | None:
     """The recorder's records of ``names`` that overlap the run's window;
-    None without a recorder, a window of tokens, or with records of the
-    window dropped."""
+    None without a recorder, a window of another unit than ``unit``, or
+    with records of the window dropped."""
     rec, win = recorder(), window_ns(run)
-    if rec is None or win is None or run["unit"] != "tokens" or \
+    if rec is None or win is None or run["unit"] != unit or \
             not _kept_since(rec, win[0]):
         return None
     return rec.spans(lo=win[0], hi=win[1], names=names)
+
+
+def kept_window_spans(run: dict, names, unit: str) -> list | None:
+    """The recorder's records of ``names`` that lie inside the run's
+    window and begin after the end of the ring's oldest record (every
+    record the ring dropped ended before it): the whole window where the
+    ring dropped none of it, else the window's last part. None without a
+    recorder or a window of ``unit``; the part read goes to standard
+    error."""
+    rec, win = recorder(), window_ns(run)
+    if rec is None or win is None or run["unit"] != unit:
+        return None
+    lo, hi = win
+    if len(rec.ring) >= rec.ring.maxlen:
+        lo = max(lo, rec.ring[0].t1)
+    if lo >= hi:
+        return None
+    print(f"[perfbench] {names} read over the window's last "
+          f"{(hi - lo) / 1e9:.3f} s of {(hi - win[0]) / 1e9:.3f} s (the "
+          f"program's ring of {rec.ring.maxlen} records)", file=sys.stderr)
+    return [r for r in rec.spans(lo=lo, hi=hi, names=names)
+            if r.t0 >= lo and r.t1 <= hi]
 
 
 def part(r, key: str) -> int:
@@ -65,6 +93,11 @@ def part(r, key: str) -> int:
 def ms_per_mtoken(ns: float, tokens: int) -> float | None:
     """ms a million tokens, which is ns a token."""
     return ns / tokens if tokens > 0 else None
+
+
+def ms_per_gib(ns: float, nbytes: int) -> float | None:
+    """ms a GiB of ``nbytes`` that took ``ns``."""
+    return ns / 1e6 / (nbytes / GIB) if nbytes > 0 else None
 
 
 def feed_ms_per_mtoken(run: dict, keys, extra=()) -> float | None:
@@ -177,13 +210,13 @@ def idle_intervals(tr) -> list:
     return out
 
 
-def idle_parse_share(run: dict) -> float | None:
+def idle_parse_share(run: dict, unit: str = "tokens") -> float | None:
     """Of the device's idle time over the profiled batches, the share in
     which the feeder threads were parsing, in %: each ``feed.file``
     visit's parse self-time spread evenly over the visit, weighted by one
     over its feeder's thread count."""
     tr, rec = run["trace"], recorder()
-    if tr is None or rec is None or run["unit"] != "tokens":
+    if tr is None or rec is None or run["unit"] != unit:
         return None
     off = offset_us(run)
     if off is None:

@@ -1,8 +1,10 @@
-"""The system under test, built from a configuration as the ushort grep
-CLI of the port (``ushort.run_ushort_grep``) builds it: the CLI's
-argument parser and checks, its signature compiler
-(``ushort.compile_signatures``), its session and its feeder
-(``cli.rank_feeder``)."""
+"""The system under test, built from a configuration as the grep CLI of
+the port builds it: the CLI's argument parser and checks, then, for a
+``--ushort`` configuration, what ``ushort.run_ushort_grep`` builds (its
+signature compiler ``ushort.compile_signatures``, its session and its
+feeder of ``UshortBuffer`` lanes), and for any other, what ``cli.run``
+builds (``cli.compile_table``, its session and its feeder of byte
+lanes). The feeder is ``cli.rank_feeder`` in both."""
 
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ def build(config: dict, args, device):
     from tpu_pattern_matching_torch.ushort import compile_signatures
 
     if not args.ushort:
-        raise SystemExit("perfbench builds the ushort CLI's session only: "
-                         "a configuration's cli starts with --ushort")
+        return build_bytes(args, device)
     engine = args.engine
     if engine == "auto":
         engine = "bloom" if device.type == "cuda" else "dense"
@@ -51,6 +52,30 @@ def build(config: dict, args, device):
                                max_chunks=sess.local_chunks, chunk_len=chunk,
                                halo=sess.halo, follow=False,
                                buffer_factory=UshortBuffer)
+
+    iid_of = np.array([p.iid for p in table.patterns], np.int64)
+    return sess, make_feeder, iid_of
+
+
+def build_bytes(args, device):
+    """:func:`build` for a byte configuration, as ``cli.run`` builds it."""
+    from tpu_pattern_matching_torch import cli
+    from tpu_pattern_matching_torch.runtime.session import MatchSession
+
+    table = cli.compile_table(args)
+    bloom_table = cli.load_bloom(args.load_bloom) if args.load_bloom else None
+    sess = MatchSession(
+        table, max_chunks=args.global_ws, chunk_len=args.chunk_size,
+        max_results=args.max_results, sort=args.sort or args.sort_global,
+        engine=args.engine, verify=args.verify, device=device,
+        bloom_table=bloom_table, pat_shards=args.pat_shards,
+        mesh=cli.mesh_spec(args))
+
+    def make_feeder(filenames):
+        return cli.rank_feeder(sess, filenames, n_workers=args.thread_no,
+                               max_chunks=sess.local_chunks,
+                               chunk_len=args.chunk_size, halo=sess.halo,
+                               text_mode=args.text_mode, follow=False)
 
     iid_of = np.array([p.iid for p in table.patterns], np.int64)
     return sess, make_feeder, iid_of
