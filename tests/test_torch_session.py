@@ -4,6 +4,7 @@ same per-group counts, the same refinement-capacity growth. Also: the
 port imports without jax, and never runs on the CPU when CUDA is asked
 for. Events are integers: every comparison is exact."""
 
+import dataclasses
 import io
 import os
 import subprocess
@@ -354,7 +355,8 @@ def test_mesh_at_world_1_equals_flat_session(world1, kw, alphabet):
         data if alphabet == 256 else seq.tolist())))
     for a, b in zip(mesh.scan_stream(io.BytesIO(data)),
                     flat.scan_stream(io.BytesIO(data))):
-        assert [vars(e) for e in a.events] == [vars(e) for e in b.events]
+        assert [dataclasses.asdict(e) for e in a.events] == [
+            dataclasses.asdict(e) for e in b.events]
         assert (a.total, a.reported, a.overflowed) == (
             b.total, b.reported, b.overflowed)
     buf = mesh.new_buffer()
@@ -381,7 +383,8 @@ def test_dense_keeps_every_slot_past_8192_tuples(world1):
     (a,), (b,) = (s.scan_stream(io.BytesIO(data)) for s in (flat, mesh))
     assert (a.total, a.reported, a.overflowed) == (16384, 16384, False)
     assert (b.total, b.reported, b.overflowed) == (16384, 16384, False)
-    assert [vars(e) for e in a.events] == [vars(e) for e in b.events]
+    assert [dataclasses.asdict(e) for e in a.events] == [
+        dataclasses.asdict(e) for e in b.events]
     assert flat.find(data) == mesh.find(data) == sorted(
         match_python([b"ab"], data))
     with pytest.raises(RuntimeError, match="overflowed"):

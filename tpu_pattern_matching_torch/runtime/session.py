@@ -44,7 +44,10 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import operator
 import time
+from collections import deque
+from itertools import repeat
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -67,12 +70,14 @@ from tpu_pattern_matching_torch.runtime.tracing import RECORDER
 from tpu_pattern_matching_torch.utils.device import resolve_device
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(slots=True)
 class MatchEvent:
     """One decoded match: absolute END offset of the occurrence in its file,
     the full pattern-index set ending there, and the representative id.
     ``lane`` is the batch lane it was found in; ``gid`` the match-group id
-    (-1 when unknown)."""
+    (-1 when unknown). Slotted, so that a batch's events are made in bulk
+    by C-level calls (``MatchSession._events_from_arrays``); events of one
+    group share its pattern list."""
 
     file_id: int
     end_offset: int
@@ -84,6 +89,9 @@ class MatchEvent:
     def expand(self) -> Iterator[tuple[int, int]]:
         for p in self.pattern_indices:
             yield (self.end_offset, p)
+
+
+_EVENT_FIELDS = tuple(f.name for f in dataclasses.fields(MatchEvent))
 
 
 @dataclasses.dataclass
@@ -278,6 +286,7 @@ class MatchSession:
         self._bloom_step = self._dense_step = None
         self.bloom_table = None
         self._groups = table.groups_as_lists()
+        self._reps = [pids[0] for pids in self._groups]
         self._gid_of_pidset = {
             tuple(sorted(pids)): g for g, pids in enumerate(self._groups)
         }
@@ -514,8 +523,8 @@ class MatchSession:
             bucket *= 2
         lane, pos, _state, gid, _rep = (
             packed[:, : min(bucket, packed.shape[1])].cpu().numpy()
-            [:, :reported].astype(np.int64))
-        return self._events_from_arrays(batch, lane, pos + batch.halo, gid)
+            [:, :reported])
+        return self._events_from_arrays(batch, lane, pos, gid)
 
     def _decode_dense_mesh(self, batch: HostBatch,
                            comp: MeshDenseMatches) -> BatchMatches:
@@ -544,32 +553,39 @@ class MatchSession:
         )
 
     def _events_from_arrays(
-        self, batch: HostBatch, ln_a, e_a, gid_a
+        self, batch: HostBatch, ln_a, own_a, gid_a
     ) -> list[MatchEvent]:
-        """MatchEvents from verified (lane, end, gid) arrays. ``sort``
-        applies the canonical (file_id, absolute end_offset) order
-        (MATCHING.md "--sort semantics")."""
-        file_ids = batch.file_ids
-        base_off = batch.base_off
-        halo = batch.halo
-        if self.sort and len(ln_a):
-            end_abs = base_off[ln_a] + e_a - halo
-            order = np.lexsort((end_abs, file_ids[ln_a]))
-            ln_a, e_a, gid_a = ln_a[order], e_a[order], gid_a[order]
-        groups = self._groups
-        events = []
-        for ln, e, g in zip(ln_a.tolist(), e_a.tolist(), gid_a.tolist()):
-            pids = groups[g]
-            events.append(
-                MatchEvent(
-                    file_id=int(file_ids[ln]),
-                    end_offset=int(base_off[ln]) + e - halo,
-                    pattern_indices=pids,
-                    rep_index=pids[0],
-                    lane=ln,
-                    gid=g,
-                )
-            )
+        """MatchEvents from verified (lane, end, gid) arrays; ``own_a`` is
+        an event's end row past its lane's halo. ``sort`` applies the
+        canonical (file_id, absolute end_offset) order (MATCHING.md
+        "--sort semantics").
+
+        Built in bulk, with no Python frame an event: numpy gathers each
+        column and ``tolist`` makes it Python ints once; one
+        ``itemgetter`` call gathers the groups' pattern lists (shared,
+        not copied) and their representatives; ``object.__new__`` mapped
+        over the count makes the events, and ``setattr`` mapped over each
+        column fills one slot of every event. Counter ``events.bulk``."""
+        n = len(ln_a)
+        RECORDER.add("events.bulk", n)
+        if not n:
+            return []
+        end_a = batch.base_off[ln_a] + own_a
+        file_a = batch.file_ids[ln_a]
+        if self.sort:
+            order = np.lexsort((end_a, file_a))
+            ln_a, end_a, file_a, gid_a = (
+                ln_a[order], end_a[order], file_a[order], gid_a[order])
+        gids = gid_a.tolist()
+        take = operator.itemgetter(*gids)
+        pids, reps = take(self._groups), take(self._reps)
+        if n == 1:  # itemgetter of one key returns the item bare
+            pids, reps = (pids,), (reps,)
+        events = list(map(object.__new__, repeat(MatchEvent, n)))
+        for name, col in zip(_EVENT_FIELDS, (
+                file_a.tolist(), end_a.tolist(), pids, reps, ln_a.tolist(),
+                gids)):
+            deque(map(setattr, events, repeat(name), col), maxlen=0)
         return events
 
     def _batch_total(self, comp: BloomHits) -> int:
@@ -697,8 +713,8 @@ class MatchSession:
                 n_ev = int(meta[0])
                 with RECORDER.span("decode.events"):
                     gid_a = self.table.state_gid[st_a]
-                    events = self._events_from_arrays(batch, ln_a, e_a,
-                                                      gid_a)
+                    events = self._events_from_arrays(
+                        batch, ln_a, e_a - batch.halo, gid_a)
                 RECORDER.add("verify.events", len(events))
             return BatchMatches(
                 events=events,  # on a mesh, this rank's lanes
@@ -725,7 +741,8 @@ class MatchSession:
         if arr is not None:
             ln_a, e_a, st_a = arr
             gid_a = self.table.state_gid[st_a]
-            events = self._events_from_arrays(batch, ln_a, e_a, gid_a)
+            events = self._events_from_arrays(batch, ln_a,
+                                              e_a - batch.halo, gid_a)
         else:  # no native dense walker: tuple fallback
             grouped: dict[tuple[int, int], set[int]] = {}
             for ln, e, pid in self._verifier.verify_batch(
@@ -829,8 +846,6 @@ class MatchSession:
         """Scan one stream batch by batch (continuity via halos), keeping
         ``depth`` batches in flight before the first decode; buffers
         rotate, so at most ``depth + 1`` are allocated."""
-        from collections import deque
-
         depth = max(1, depth)
         bufs = [self.new_buffer()]
         cur = 0

@@ -35,7 +35,10 @@ Spans and counters by layer:
   ``decode.rows`` (bitmap read-back and candidate rows), ``decode.verify``
   (host or device verify), ``decode.events``; ``batch`` (a batch's scan
   start to its decode return); counters ``verify.candidates``,
-  ``verify.events``, ``refine.overflows``.
+  ``verify.events``, ``refine.overflows``, ``events.bulk`` (the events
+  built in bulk from arrays, ``MatchSession._events_from_arrays``: all of
+  ``verify.events`` on the dense, device-verify and native host-verify
+  paths, none on the tuple fallback and the grid's merge).
 """
 
 from __future__ import annotations
