@@ -1,25 +1,33 @@
-"""A batch's events built in bulk (``MatchSession._events_from_arrays``)
-against the per-event build it replaced, on the CPU.
+"""A batch's events built in bulk (``MatchSession._events_from_arrays``,
+every decode path's one builder) against a build one event at a time, on
+the CPU.
 
-- Every decode path that builds events from (lane, end, gid) arrays: the
-  dense engine flat and on a 1-rank mesh, the native host verify and the
-  device verify, on bytes and on ushorts, with ``sort`` off and on. Each
-  call's events equal, field for field and in order, a build written here
-  one event at a time, and the events equal the oracle's.
+- Every decode path: the dense engine flat and on a 1-rank mesh, the
+  native host verify and the device verify, on bytes and on ushorts, with
+  ``sort`` off and on. Each call's events equal, field for field and in
+  order, a build written here one event at a time, and the events equal
+  the oracle's.
+- The paths that give each event's pattern list: host verify's tuple
+  fallback, and the grid's merge on a 1 x 2 gloo grid (two ranks), the
+  latter held to the reference's merge loop (``tests/test_torch_grid.py``
+  ``loop_merge``) over the shards' rows.
 - A call with 0 events, with 1 (itemgetter's one-key case) and with a
   group of several patterns; events share their group's pattern list.
 - ``MatchEvent``'s interface: keyword construction and defaults,
   ``expand``, equality, a pickle round trip, assignable fields;
   ``BatchMatches.events`` is a list.
-- Counter ``events.bulk``: equal to ``verify.events`` in ``--json-stats``
-  on the dense and the native host-verify paths, 0 on the tuple fallback.
+- Counter ``verify.events``: equal to the run's total in
+  ``--json-stats`` on the dense and the native host-verify paths.
 
 Events are integers: every comparison is exact."""
 
 import dataclasses
 import io
 import json
+import os
 import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -45,9 +53,10 @@ def world1():
         yield
 
 
-def reference_build(sess, batch, ln_a, own_a, gid_a):
+def reference_build(sess, batch, ln_a, own_a, gid_a, pids=None):
     """The per-event build: one ``MatchEvent`` a pass of a loop, each
-    numpy scalar read on its own, sorted by (file, end) when asked."""
+    numpy scalar read on its own, sorted by (file, end) when asked; an
+    event's pattern list is its group's, or ``pids[i]`` when given."""
     order = range(len(ln_a))
     if sess.sort:
         order = sorted(order, key=lambda i: (
@@ -56,11 +65,11 @@ def reference_build(sess, batch, ln_a, own_a, gid_a):
     out = []
     for i in order:
         ln, g = int(ln_a[i]), int(gid_a[i])
-        pids = sess._groups[g]
+        p = sess._groups[g] if pids is None else pids[i]
         out.append(MatchEvent(
             file_id=int(batch.file_ids[ln]),
             end_offset=int(batch.base_off[ln]) + int(own_a[i]),
-            pattern_indices=pids, rep_index=pids[0], lane=ln, gid=g))
+            pattern_indices=p, rep_index=p[0], lane=ln, gid=g))
     return out
 
 
@@ -68,13 +77,14 @@ def fields(e):
     return tuple(getattr(e, f.name) for f in dataclasses.fields(e))
 
 
-def assert_same_events(sess, got, want):
+def assert_same_events(sess, got, want, shared=True):
     assert type(got) is list
     assert [fields(e) for e in got] == [fields(e) for e in want]
     for e in got:
         assert type(e) is MatchEvent
         assert all(type(v) is int for i, v in enumerate(fields(e)) if i != 2)
-        assert e.pattern_indices is sess._groups[e.gid]  # shared
+        if shared:
+            assert e.pattern_indices is sess._groups[e.gid]
 
 
 def spy(sess):
@@ -83,10 +93,10 @@ def spy(sess):
     calls = []
     bulk = sess._events_from_arrays
 
-    def wrapped(batch, ln_a, own_a, gid_a):
-        got = bulk(batch, ln_a, own_a, gid_a)
+    def wrapped(batch, ln_a, own_a, gid_a, pids=None):
+        got = bulk(batch, ln_a, own_a, gid_a, pids)
         calls.append((got, reference_build(sess, batch, ln_a, own_a,
-                                           gid_a)))
+                                           gid_a, pids), pids is None))
         return got
 
     sess._events_from_arrays = wrapped
@@ -161,8 +171,8 @@ def test_bulk_events_equal_per_event_build(world1, path, alphabet, sort):
     bm = sess.decode(batch, sess.scan(batch))
     assert isinstance(bm, BatchMatches) and type(bm.events) is list
     assert len(calls) == 1
-    got, want = calls[0]
-    assert got is bm.events
+    got, want, shared = calls[0]
+    assert got is bm.events and shared
     assert_same_events(sess, got, want)
     assert any(len(e.pattern_indices) == 3 for e in got)
     if sort:
@@ -207,8 +217,8 @@ def test_session_batch_of_few_events(engine, data, n_events):
     calls = spy(sess)
     (bm,) = sess.scan_stream(io.BytesIO(data), file_id=3)
     assert type(bm.events) is list and len(bm.events) == n_events
-    for got, want in calls:
-        assert_same_events(sess, got, want)
+    for got, want, shared in calls:
+        assert_same_events(sess, got, want, shared)
     if n_events:
         assert calls and calls[0][0] is bm.events
     if data.count(b"abc"):
@@ -257,20 +267,141 @@ def test_events_bulk_counter_equals_verify_events(tmp_path, capsys, engine):
     stats = run_json_stats(["-f", ",".join(names), "-p",
                             str(tmp_path / "p.txt"), "-B", "256", "-G", "8",
                             "-w", "2", "--engine", engine], capsys)
-    counters = stats["counters"]
-    assert counters["events.bulk"] == counters["verify.events"] \
-        == stats["matches_total"] > 100
+    assert stats["counters"]["verify.events"] == stats["matches_total"] \
+        > 100
 
 
 def test_tuple_fallback_builds_no_bulk_events():
+    # the fallback's events, too, come from the one bulk build, each with
+    # its own pattern list (the name is from when they did not)
     pats = [b"abc", b"bc", b"zz"]
     data = b"qabcqzzq" * 40
     sess = MatchSession(compile_patterns(pats), max_chunks=8, chunk_len=64,
                         device="cpu", engine="bloom", verify="host")
     sess._verifier._dense = None  # no native walker: the tuple fallback
+    calls = spy(sess)
     c0 = RECORDER.counters()
     got = sess.find(data)
     c1 = RECORDER.counters()
     assert got == sorted(match_python(pats, data))
-    assert c1.get("events.bulk", 0) == c0.get("events.bulk", 0)
     assert c1["verify.events"] - c0.get("verify.events", 0) == 80
+    assert sum(len(c[0]) for c in calls) == 80
+    for built, want, shared in calls:
+        assert not shared
+        assert_same_events(sess, built, want, shared=False)
+    assert {tuple(e.pattern_indices) for c in calls for e in c[0]} == {
+        (0, 1), (2,)}
+
+
+def grid_rank(rank: str, url: str, out_dir: str) -> None:
+    """One rank of a 1 x 2 grid (two pattern shards of one lane column,
+    gloo): ``corpus(256)``'s batch through device verify, with ``sort``
+    off and on. Each rank checks its builds against ``reference_build``
+    and saves its events, its total and the shards' rows they were merged
+    from (``verify_rows``) to ``out_dir``."""
+    import torch
+
+    from tpu_pattern_matching_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    rank = int(rank)
+    mesh.init_distributed(url, 2, rank, device="cpu")
+    pats, files, _syms = corpus(256)
+    table = compile_patterns(pats)
+    out = {}
+    for sort in (0, 1):
+        sess = MatchSession(table, max_chunks=128, chunk_len=64,
+                            device="cpu", sort=bool(sort), engine="bloom",
+                            verify="device", mesh="all", pat_shards=2)
+        assert sess._grid.is_leader == (rank == 0)
+        rows, verify_rows = [], sess._dvf.verify_rows
+
+        def kept(*args, verify_rows=verify_rows, rows=rows):
+            rows.append(verify_rows(*args))
+            return rows[-1]
+
+        sess._dvf.verify_rows = kept
+        calls = spy(sess)
+        batch = (fill(sess, files) if rank == 0
+                 else sess.new_buffer().to_batch())
+        bm = sess.decode(batch, sess.scan(batch))
+        (built, want, shared), = calls
+        assert built is bm.events and not shared
+        assert_same_events(sess, built, want, shared=False)
+        sh, ln, e, g, _gc = rows[0]
+        out[f"rows_{sort}"] = np.stack([sh, ln, e, g])
+        out[f"events_{sort}"] = np.array(
+            [fields(ev)[:2] + fields(ev)[3:] for ev in bm.events],
+            np.int64).reshape(-1, 5)
+        out[f"pids_{sort}"] = np.array(
+            [len(ev.pattern_indices) for ev in bm.events]
+            + [p for ev in bm.events for p in ev.pattern_indices], np.int64)
+        out[f"totals_{sort}"] = np.array([bm.total, bm.reported])
+    for s, (off, pids) in enumerate(sess._dvf.shard_groups):
+        out[f"groups_{s}"] = np.concatenate([[len(off)], off, pids])
+    out.update(file_ids=batch.file_ids, base_off=batch.base_off,
+               halo=batch.halo)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def test_grid_events_equal_per_event_merge(tmp_path):
+    from tests.test_torch_grid import loop_merge
+    from tests.test_torch_mesh import REPO, RANK_TIMEOUT_S
+
+    url = f"file://{tmp_path / 'rendezvous'}"
+    code = ("import sys; from tests.test_torch_events import grid_rank; "
+            "grid_rank(*sys.argv[1:])")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), url, str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0].decode()
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed = [f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    assert not failed, "\n".join(failed)
+    lead, follow = (np.load(tmp_path / f"rank{r}.npz") for r in range(2))
+    pats, _files, syms = corpus(256)
+    groups = compile_patterns(pats).groups_as_lists()
+    shard_groups = []
+    for s in range(2):
+        a = lead[f"groups_{s}"]
+        off, pids = a[1 : 1 + a[0]], a[1 + a[0]:]
+        shard_groups.append([pids[off[i]:off[i + 1]].tolist()
+                             for i in range(len(off) - 1)])
+    file_ids, base_off, halo = (lead["file_ids"], lead["base_off"],
+                                int(lead["halo"]))
+    for sort in (0, 1):
+        sh, ln, e, g = lead[f"rows_{sort}"]
+        identity = [np.arange(len(gl)) for gl in shard_groups]
+        # (file, end, rep, lane, gid, patterns), one event a merged set
+        want = [(int(file_ids[l_]), int(base_off[l_]) + e_ - halo, p[0],
+                 l_, groups.index(list(p)), p)
+                for l_, e_, p in loop_merge(sh, ln, e, g, identity,
+                                            shard_groups)]
+        if sort:
+            want.sort(key=lambda w: w[:2])
+        ev, pl = lead[f"events_{sort}"], lead[f"pids_{sort}"]
+        n = len(ev)
+        offs = np.concatenate([[0], np.cumsum(pl[:n])]) + n
+        got = [(*ev[k].tolist(), tuple(pl[offs[k]:offs[k + 1]].tolist()))
+               for k in range(n)]
+        assert got == want
+        assert len(got) > 20 and any(len(w[5]) == 3 for w in want)
+        by_file = {fid: [] for fid in syms}
+        for w in want:
+            by_file[w[0]] += [(w[1], p) for p in w[5]]
+        for fid, data in syms.items():
+            assert sorted(by_file[fid]) == sorted(match_python(pats, data))
+        assert lead[f"totals_{sort}"].tolist() == [n, n]
+        assert follow[f"events_{sort}"].shape == (0, 5)
+        assert follow[f"totals_{sort}"].tolist() == [n, 0]

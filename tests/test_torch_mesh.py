@@ -563,8 +563,9 @@ def test_rendezvous_and_device_specs():
 
 
 def test_decode_dense_mesh_equals_loop_version():
-    # the array-driven decode of a rank's packed block against the
-    # reference's per-event loop, on random blocks, sorted and not
+    # the session's one dense decode, on a rank's packed block in the
+    # mesh's meta layout, against the reference's per-event loop, on
+    # random blocks, sorted and not
     import torch
 
     from tpu_pattern_matching_torch.core.dfa import (
@@ -600,7 +601,7 @@ def test_decode_dense_mesh_equals_loop_version():
             comp = MeshDenseMatches(torch.from_numpy(metas),
                                     torch.from_numpy(packed),
                                     torch.zeros(G, dtype=torch.int32))
-            bm = sess._decode_dense_mesh(batch, comp)
+            bm = sess.decode(batch, comp)
             want = []  # the reference's loop (one device: no rebasing)
             for k in range(rep):
                 ln, g = int(packed[0][k]), int(packed[3][k])

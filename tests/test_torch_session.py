@@ -519,3 +519,39 @@ def test_port_imports_and_runs_without_jax(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("kw", [{}, {"group_counts": np.zeros(2, np.int32)}],
+                         ids=["default", "group_counts"])
+def test_batch_matches_fields_equal_reference(kw):
+    # the reference's fifth field, group_counts, with its default
+    from tpu_pattern_matching.runtime.session import BatchMatches as Ref
+    from tpu_pattern_matching_torch.runtime.session import BatchMatches
+
+    ref, port = Ref([], 0, 0, False, **kw), BatchMatches([], 0, 0, False,
+                                                         **kw)
+    names = [f.name for f in dataclasses.fields(Ref)]
+    assert [f.name for f in dataclasses.fields(BatchMatches)] == names
+    for name in names:
+        a, b = getattr(ref, name), getattr(port, name)
+        if isinstance(a, np.ndarray):
+            assert b.dtype == a.dtype
+            np.testing.assert_array_equal(b, a)
+        else:
+            assert b == a and type(b) is type(a)
+
+
+def test_match_event_asdict_equals_reference():
+    # MatchEvent is slotted in the port (its events are built in bulk, a
+    # slot at a time) and has no __dict__: its fields, as asdict gives
+    # them, are the reference's
+    from tpu_pattern_matching.runtime.session import MatchEvent as Ref
+    from tpu_pattern_matching_torch.runtime.session import MatchEvent
+
+    for kw in (dict(file_id=1, end_offset=5, pattern_indices=[3],
+                    rep_index=3),
+               dict(file_id=0, end_offset=70, pattern_indices=[2, 4, 9],
+                    rep_index=2, lane=6, gid=1)):
+        assert dataclasses.asdict(MatchEvent(**kw)) == dataclasses.asdict(
+            Ref(**kw))
+    assert not hasattr(MatchEvent(**kw), "__dict__")

@@ -448,6 +448,71 @@ def reduce_stats(sess, stats) -> bool:
     return ctx.rank == 0
 
 
+def scan_files(args, sess, feeder, stats, on_batch) -> int:
+    """Scan the feeder's batches with ``sess`` (both grep CLIs' loop) and
+    return the run's start (``now_us``) for ``report_stats``.
+
+    SIGINT stops the feeder, which drains and flushes a final batch
+    (ocl_aho_grep.c:25-31, 61-65); off the main thread (a library
+    embedding) no handler is installed. Inside ``device_trace`` the
+    device scans batch k+1 while the host decodes batch k (depth 2);
+    follow mode runs depth 1: a held batch's matches would wait for the
+    NEXT batch, which a quiet stream may never produce. Each decoded
+    batch adds a round, its total (``batch_total``) and the pattern ids
+    it reports (one per pattern of a co-terminating group, as the
+    reference CLI counts them), warns on a slot overflow, and then goes
+    to ``on_batch(item, bm)`` for the mode's bytes, lines and ``-v``
+    lines."""
+    from collections import deque
+
+    from tpu_pattern_matching_torch.runtime.tracing import device_trace
+
+    try:
+        signal.signal(signal.SIGINT, lambda *_: feeder.stop())
+    except ValueError:  # not the main thread (library embedding)
+        pass
+
+    def consume(item, comp):
+        bm = sess.decode(item.batch, comp)
+        stats.rounds += 1
+        stats.matches_total += batch_total(sess, bm)
+        stats.matches_reported += sum(len(e.pattern_indices)
+                                      for e in bm.events)
+        if bm.overflowed:
+            print(
+                f"WARNING: result slots overflowed: {bm.total - bm.reported} "
+                f"match(es) not reported this round (raise -R)",
+                file=sys.stderr,
+            )
+        on_batch(item, bm)
+
+    start = now_us()
+    with device_trace(getattr(args, "profile", None)):
+        feeder.start()
+        depth = 1 if getattr(args, "follow", False) else 2
+        pending: deque = deque()
+        for item in rank_batches(sess, feeder):
+            pending.append((item, sess.scan(item.batch)))
+            if len(pending) >= depth:
+                consume(*pending.popleft())
+        while pending:
+            consume(*pending.popleft())
+    return start
+
+
+def report_stats(args, sess, stats, start: int) -> int:
+    """The run's STATS tail: ``wall_us`` since ``start``, the counters
+    summed over a mesh's ranks, and, on the rank that prints them (each
+    rank printed its own ``-v`` lines), the STATS block and the
+    ``--json-stats`` line. Returns the exit code, 0."""
+    stats.wall_us = now_us() - start
+    if reduce_stats(sess, stats):
+        print(stats.render())
+        if getattr(args, "json_stats", False):
+            print(stats.to_json())
+    return 0
+
+
 def load_bloom(path: str):
     """The port's filter from a ``--save-bloom`` dump of either package:
     a pattern-sharded dump (``pshard_words``) loads as a ``ShardedBloom``,
@@ -540,16 +605,6 @@ def run(args) -> int:
         automaton_bytes=table.nbytes,
     )
 
-    # SIGINT: drain and flush a final batch (ocl_aho_grep.c:25-31, 61-65)
-    def _sigint(signum, frame):
-        feeder.stop()
-
-    signal.signal(signal.SIGINT, _sigint)
-
-    from collections import deque
-
-    from tpu_pattern_matching_torch.runtime.tracing import device_trace
-
     def context_echo(batch, ev, pat_n: int) -> str:
         """The reference's match-context echo (ocl_aho_grep.c:289-303):
         text mode prints the matched line; binary mode a +-10-byte window
@@ -572,21 +627,9 @@ def run(args) -> int:
 
     global_out: list = []  # --sort-global: (canonical key, rendered lines)
 
-    def consume(item, comp):
-        bm = sess.decode(item.batch, comp)
-        stats.rounds += 1
+    def on_batch(item, bm):
         stats.bytes += item.bytes
         stats.lines += item.lines
-        stats.matches_total += batch_total(sess, bm)
-        # "Matches reported" counts expanded pattern ids (one per pattern
-        # in a co-terminating group), as the reference CLI does
-        stats.matches_reported += sum(len(e.pattern_indices) for e in bm.events)
-        if bm.overflowed:
-            print(
-                f"WARNING: result slots overflowed: {bm.total - bm.reported} "
-                f"match(es) not reported this round (raise -R)",
-                file=sys.stderr,
-            )
         if args.verbose:
             for ev in bm.events:
                 fname = filenames[ev.file_id]
@@ -609,35 +652,12 @@ def run(args) -> int:
                     else:
                         print(lines)
 
-    start = now_us()
-    with device_trace(args.profile):
-        feeder.start()
-        # depth-2 pipeline: the device scans batch k+1 while the host
-        # decodes batch k. Follow mode runs depth 1: a held batch's
-        # matches would wait for the NEXT batch, which a quiet stream may
-        # never produce.
-        depth = 1 if args.follow else 2
-        pending: deque = deque()
-        for item in rank_batches(sess, feeder):
-            comp = sess.scan(item.batch)
-            pending.append((item, comp))
-            if len(pending) >= depth:
-                consume(*pending.popleft())
-        while pending:
-            consume(*pending.popleft())
+    start = scan_files(args, sess, feeder, stats, on_batch)
     if args.sort_global:
         global_out.sort(key=lambda kv: kv[0])
         for _key, lines in global_out:
             print(lines)
-    stats.wall_us = now_us() - start
-
-    # each rank printed its own verbose lines (it alone read those files;
-    # on the grid, each column's leader); rank 0 prints the global STATS
-    if reduce_stats(sess, stats):
-        print(stats.render())
-        if args.json_stats:
-            print(stats.to_json())
-    return 0
+    return report_stats(args, sess, stats, start)
 
 
 if __name__ == "__main__":

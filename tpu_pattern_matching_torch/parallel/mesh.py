@@ -304,13 +304,15 @@ def make_sharded_scan_step(ctx: MeshContext, table, *, halo: int,
 class MeshDenseMatches:
     """Dense-engine results of one rank's lanes.
 
-    ``metas = [global_total, global_reported, local_total,
-    local_reported]`` (the first two all-reduced); ``packed [5, cap]``
+    ``meta = [global_total, global_reported, local_total,
+    local_reported]`` (the first two all-reduced; ``CompactMatches.meta``
+    too begins with the total and the reported count it overflows past,
+    and ends with the count of tuples in ``packed``); ``packed [5, cap]``
     this rank's compacted (lane, pos, state, gid, rep_pid) tuples over
     its own lanes; ``gcounts`` the in-walk per-group counts, all-reduced
     (exact past slot and capacity overflow)."""
 
-    metas: torch.Tensor  # [4] int32
+    meta: torch.Tensor  # [4] int32
     packed: torch.Tensor  # [5, cap] int32
     gcounts: torch.Tensor  # [G] int32
 
@@ -332,7 +334,7 @@ def make_sharded_dense_step(ctx: MeshContext, table, *, halo: int,
         meta, packed = _compact(counts, slot_state, slot_pos,
                                 table.state_gid, table.group_rep, capacity)
         red = ctx.all_reduce(torch.cat([meta, gcounts]))
-        return MeshDenseMatches(metas=torch.cat([red[:2], meta]),
+        return MeshDenseMatches(meta=torch.cat([red[:2], meta]),
                                 packed=packed, gcounts=red[2:])
 
     return run

@@ -38,11 +38,20 @@ ranks. With ``pat_shards > 1`` as well it is the ("pat", "data") grid
 (``parallel/pshard.py``): each rank holds one pattern shard of one data
 column, the column's leader feeds and decodes the column's lanes, and
 its followers return no events.
+
+``MatchSession.__init__`` names the pipeline once: "dense" (flat or on
+the mesh), "host" (host verify: flat, refined, pattern-sharded, on the
+mesh or on a grid column's leader), "device" (device verify, flat or on
+the mesh), "grid" (device verify on the grid) or "follower" (a grid
+rank under host verify that is not its column's leader). ``scan``,
+``decode`` and ``decode_counts`` dispatch on that name, and every decode
+hands its verified (lane, end, group) rows to one bulk event builder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import operator
 import time
@@ -92,6 +101,7 @@ class MatchEvent:
 
 
 _EVENT_FIELDS = tuple(f.name for f in dataclasses.fields(MatchEvent))
+_NO_ROWS = (np.zeros(0, np.int64),) * 3  # a batch without verified rows
 
 
 @dataclasses.dataclass
@@ -99,9 +109,10 @@ class BatchMatches:
     """Host-decoded results of one batch."""
 
     events: list[MatchEvent]
-    total: int
+    total: int  # exact device-side event count (incl. slot overflow)
     reported: int
     overflowed: bool
+    group_counts: np.ndarray | None = None  # [G] int32 when requested
 
 
 def placement_device(sharding, device):
@@ -272,6 +283,20 @@ class MatchSession:
             self.device = ctx.device
         else:
             self.device = resolve_device(device)
+        grid = self._grid
+        # The pipeline, named here once: scan, decode and decode_counts
+        # dispatch on it. "host" verifies flat (refined or not), pattern-
+        # sharded, on the mesh or on a grid column's leader; "device" flat
+        # or on the mesh; "grid" is device verify on the grid; a grid's
+        # other ranks under host verify ("follower") decode nothing.
+        if engine == "dense":
+            self._pipeline = "dense"
+        elif self.verify_mode == "device":
+            self._pipeline = "device" if grid is None else "grid"
+        elif grid is None or grid.is_leader:
+            self._pipeline = "host"
+        else:
+            self._pipeline = "follower"
         self.table = table
         self.max_chunks = max_chunks
         self.chunk_len = chunk_len
@@ -283,7 +308,6 @@ class MatchSession:
         # (their unrefined bitmap went to the host verifier)
         self.refine_overflows = 0
         self._bloom = self._verifier = self._dvf = self.dev = None
-        self._bloom_step = self._dense_step = None
         self.bloom_table = None
         self._groups = table.groups_as_lists()
         self._reps = [pids[0] for pids in self._groups]
@@ -297,16 +321,24 @@ class MatchSession:
             # every result slot of the rank's lanes, with or without a
             # mesh: the reference's 8192-tuple cap is not kept (ROADMAP
             # queue 3)
-            self._dense_capacity = self.local_chunks * max_results
-            if ctx is not None:
+            capacity = self.local_chunks * max_results
+            if ctx is None:
+                from tpu_pattern_matching_torch.ops.compact import (
+                    scan_and_compact,
+                )
+
+                self._step = functools.partial(
+                    scan_and_compact, self.dev, max_results=max_results,
+                    capacity=capacity, sort=sort, chunk_len=chunk_len)
+            else:
                 from tpu_pattern_matching_torch.parallel.mesh import (
                     make_sharded_dense_step,
                 )
 
-                self._dense_step = make_sharded_dense_step(
+                walk = make_sharded_dense_step(
                     ctx, self.dev, halo=self.halo, max_results=max_results,
-                    num_groups=table.num_groups,
-                    capacity=self._dense_capacity)
+                    num_groups=table.num_groups, capacity=capacity)
+                self._step = lambda data, bounds, halo: walk(data, bounds)
             dprint(1, "session: engine=dense chunks=%dx%d halo=%d device=%s "
                    "mesh=%s", max_chunks, chunk_len, self.halo, self.device,
                    ctx)
@@ -319,7 +351,7 @@ class MatchSession:
         else:
             bft = BloomFilterTable.from_table(table, **(bloom_opts or {}))
         self.bloom_table = bft
-        grid = self._grid
+        probe = None
         if grid is not None:
             from tpu_pattern_matching_torch.parallel.pshard import (
                 make_pattern_sharded_bloom_step,
@@ -330,8 +362,7 @@ class MatchSession:
                                  "(ShardedBloom), not a flat one")
             # this rank's shard alone: 1/S of the filter
             self._bloom = bft.put_shard(grid.pat_index, self.device)
-            self._bloom_step = make_pattern_sharded_bloom_step(
-                grid, self._bloom)
+            probe = make_pattern_sharded_bloom_step(grid, self._bloom)
         else:
             self._bloom = bft.put(self.device)
             if ctx is not None:
@@ -339,8 +370,14 @@ class MatchSession:
                     make_sharded_bloom_step,
                 )
 
-                self._bloom_step = make_sharded_bloom_step(ctx, self._bloom)
-        if self.verify_mode == "device" and grid is not None:
+                probe = make_sharded_bloom_step(ctx, self._bloom)
+        bloom = self._bloom
+        if probe is None:
+            self._step = bloom.hits
+        else:  # the mesh's or the grid's step: meta reduced over ranks
+            self._step = lambda data, bounds: BloomHits(
+                *probe(bloom.words, data, bounds))
+        if self._pipeline == "grid":
             from tpu_pattern_matching_torch.parallel.pshard import (
                 PshardDeviceVerifier,
                 shard_table,
@@ -351,7 +388,7 @@ class MatchSession:
             self._dvf = PshardDeviceVerifier(
                 grid, bft,
                 shard_table(table, bft.parts[grid.pat_index]), self.halo)
-        elif self.verify_mode == "device":
+        elif self._pipeline == "device":
             from tpu_pattern_matching_torch.ops.verify_device import (
                 DeviceVerifier,
             )
@@ -361,7 +398,7 @@ class MatchSession:
             self._dvf = DeviceVerifier(table, bft.cfg, self.halo,
                                        self.device, gram_keys=bft.gram_keys,
                                        mesh=ctx)
-        elif grid is None or grid.is_leader:  # a follower never decodes
+        elif self._pipeline == "host":
             self._verifier = Verifier(
                 [p.symbols for p in table.patterns],
                 alphabet_size=table.alphabet_size,
@@ -454,120 +491,174 @@ class MatchSession:
         return comp
 
     def _scan_on_device(self, batch: HostBatch, data, bounds):
-        """The device engine on one uploaded batch (``scan``)."""
-        from tpu_pattern_matching_torch.ops.compact import scan_and_compact
-
-        if self._dense_step is not None:
-            return self._dense_step(data, bounds)
-        if self.dev is not None:
-            return scan_and_compact(
-                self.dev, data, bounds, halo=batch.halo,
-                max_results=self.max_results,
-                capacity=self._dense_capacity, sort=self.sort,
-                chunk_len=self.chunk_len,
-            )
-        if self._bloom_step is not None:
-            meta, bits = self._bloom_step(self._bloom.words, data, bounds)
-            h = BloomHits(meta=meta, bits=bits)
-        else:
-            h = self._bloom.hits(data, bounds)
-        if self._dvf is not None:
+        """The pipeline's device step on one uploaded batch (``scan``):
+        the dense walk and compaction, or the bloom probe, whose result
+        keeps the uploaded arrays for a device verify stage."""
+        if self._pipeline == "dense":
+            return self._step(data, bounds, halo=batch.halo)
+        h = self._step(data, bounds)
+        if self._pipeline in ("device", "grid"):
             h.data, h.bounds = data, bounds
         return h
 
-    def decode(self, batch: HostBatch, comp) -> BatchMatches:
-        """Exact events of one batch; for the dense engine at most two
-        transfers: ``meta``, then the packed tuples only when matches
-        exist.
+    def decode(self, batch: HostBatch,
+               comp: BloomHits | CompactMatches | MeshDenseMatches
+               ) -> BatchMatches:
+        """Exact events of one batch: the pipeline's verified rows (lane,
+        end past the halo, group), then one bulk build of their events
+        (``_events_from_arrays``). The dense engine reads ``meta``, then
+        one slice of the packed tuples only when matches exist; the bloom
+        engine reads its survivor total, then verifies the candidates on
+        the host or the device when it is not zero.
 
         Spans: ``decode`` > ``decode.sync``, ``decode.rows``,
         ``decode.verify``, ``decode.events``; then ``batch``, from the
-        batch's ``scan`` start to here."""
+        batch's ``scan`` start to here. Counter ``verify.events``."""
         seq = getattr(batch, "seq", -1)
         work = batch.symbols
         with RECORDER.span("decode", seq, work):
-            bm = self._decode(batch, comp)
+            total, overflowed, rows = self._ROWS[self._pipeline](
+                self, batch, comp)
+            with RECORDER.span("decode.events"):
+                events = self._events_from_arrays(batch, *rows)
+            RECORDER.add("verify.events", len(events))
+            bm = BatchMatches(events=events, total=total,
+                              reported=len(events), overflowed=overflowed)
         t0 = getattr(comp, "scan_t0", None)
         if t0 is not None:
             RECORDER.record("batch", t0, time.perf_counter_ns(), seq, work)
         return bm
 
-    def _decode(self, batch: HostBatch, comp) -> BatchMatches:
-        if isinstance(comp, BloomHits):
-            return self._decode_bloom(batch, comp)
-        if isinstance(comp, MeshDenseMatches):
-            return self._decode_dense_mesh(batch, comp)
+    # Each pipeline's verified rows of one batch, for ``decode`` and
+    # ``decode_counts``: ``(total, overflowed, (lanes, ends past the halo,
+    # gids[, pattern lists]))``.
+
+    def _dense_rows(self, batch: HostBatch, comp):
+        """The dense walk's compacted tuples. ``meta`` begins with the
+        total and the reported count it overflows past, and ends with the
+        count of tuples in ``packed``: ``[total, reported]`` flat, ``[global
+        total, global reported, local total, local reported]`` on a mesh
+        (where the events are this rank's lanes'). ``packed [5, K]`` (lane,
+        pos, state, gid, rep_pid) comes back in one transfer of a
+        power-of-two bucket >= those tuples; ``pos`` is a tuple's end past
+        the halo."""
         with RECORDER.span("decode.sync"):
-            total, reported = (int(x) for x in comp.meta.cpu())
-        with RECORDER.span("decode.events"):
-            events = self._dense_events(batch, comp.packed, reported)
-        RECORDER.add("verify.events", len(events))
-        return BatchMatches(
-            events=events,
-            total=total,
-            reported=reported,
-            overflowed=total > reported,
+            meta = comp.meta.tolist()
+        n = meta[-1]
+        rows = _NO_ROWS
+        if n:
+            with RECORDER.span("decode.rows"):
+                bucket = max(256, 1 << (n - 1).bit_length())
+                lane, pos, _state, gid, _rep = (
+                    comp.packed[:, :bucket].cpu().numpy()[:, :n])
+            rows = lane, pos, gid
+        return meta[0], meta[0] > meta[1], rows
+
+    def _host_rows(self, batch: HostBatch, comp: BloomHits):
+        """Host verify: the survivor total, then the bitmap's candidate
+        rows (read only when the total is not zero) walked by the native
+        window walker; without it, the tuple fallback's (lane, end,
+        pattern) tuples grouped by (lane, end), each with its pattern
+        list. The total counts the events."""
+        from tpu_pattern_matching_torch.ops.bloom import unpack_hit_rows
+
+        total = self._batch_total(comp)
+        with RECORDER.span("decode.rows"):
+            if total:
+                rows, lanes = unpack_hit_rows(comp.bits.cpu().numpy(),
+                                              self.bloom_table.cfg.stride)
+            else:
+                rows = lanes = np.zeros(0, np.int64)
+        RECORDER.add("verify.candidates", len(rows))
+        args = (batch.data, lanes, rows, batch.halo, batch.start_t,
+                batch.end_t)
+        with RECORDER.span("decode.verify", work=len(rows)):
+            arr = self._verifier.verify_batch_arrays(*args)
+            if arr is None:  # no native dense walker: the tuple fallback
+                grouped: dict[tuple[int, int], set[int]] = {}
+                for ln, e, pid in self._verifier.verify_batch(*args):
+                    grouped.setdefault((ln, e), set()).add(pid)
+                ln_a, e_a = np.array(list(grouped), np.int64).reshape(-1, 2).T
+                pids = list(map(sorted, grouped.values()))
+                return len(pids), False, (ln_a, e_a - batch.halo,
+                                          self._gids_of(pids), pids)
+        ln_a, e_a, st_a = arr
+        return len(ln_a), False, (ln_a, e_a - batch.halo,
+                                  self.table.state_gid[st_a])
+
+    def _device_rows(self, batch: HostBatch, comp: BloomHits):
+        """Device verify: the survivor total, then, if it is not zero, the
+        verify stage's events. On a mesh every rank verifies (the total
+        is global), the events are this rank's lanes' and the total every
+        rank's."""
+        total = self._batch_total(comp)
+        if not total:
+            return 0, False, _NO_ROWS
+        with RECORDER.span("decode.verify", work=total):
+            meta, (ln_a, e_a, st_a), _gc = self._device_verify(comp, total)
+        return int(meta[0]), False, (ln_a, e_a - batch.halo,
+                                     self.table.state_gid[st_a])
+
+    def _grid_rows(self, batch: HostBatch, comp: BloomHits):
+        """The grid's device verify: if the global survivor total is not
+        zero, every rank verifies together with the probe's largest
+        column total, and the column's leader merges its shards' rows
+        (``merge_shard_rows``), each event's pattern list the global
+        co-terminating set. The events are the column's, on its leader;
+        the total every column's."""
+        from tpu_pattern_matching_torch.parallel.mesh import (
+            allreduce_host_counts,
+        )
+        from tpu_pattern_matching_torch.parallel.pshard import (
+            merge_shard_rows,
         )
 
-    def _dense_events(self, batch: HostBatch, packed, reported: int
-                      ) -> list[MatchEvent]:
-        """MatchEvents of the first ``reported`` compacted dense tuples
-        ``packed [5, K]`` (lane, pos, state, gid, rep_pid): one transfer
-        of a power-of-two bucket >= reported (proportional to the
-        matches), then the array-driven ``_events_from_arrays`` (a
-        tuple's ``pos`` is its end past the halo)."""
-        if not reported:
-            return []
-        bucket = 256
-        while bucket < reported:
-            bucket *= 2
-        lane, pos, _state, gid, _rep = (
-            packed[:, : min(bucket, packed.shape[1])].cpu().numpy()
-            [:, :reported])
-        return self._events_from_arrays(batch, lane, pos, gid)
+        if not self._batch_total(comp):
+            return 0, False, _NO_ROWS
+        with RECORDER.span("decode.verify"):
+            sh, ln, e, g, _gc = self._dvf.verify_rows(
+                comp.data, comp.bounds, comp.bits, int(comp.meta[1]))
+            ln_a, e_a, bounds, pids = merge_shard_rows(
+                sh, ln, e, g, self._dvf.shard_groups)
+        b = bounds.tolist()
+        sets = list(map(pids.tolist().__getitem__, map(slice, b, b[1:])))
+        n_ev = allreduce_host_counts(np.array([len(sets)], np.int64),
+                                     self._mesh_ctx)[0]
+        return int(n_ev), False, (ln_a, e_a - batch.halo,
+                                  self._gids_of(sets), sets)
 
-    def _decode_dense_mesh(self, batch: HostBatch,
-                           comp: MeshDenseMatches) -> BatchMatches:
-        """This rank's events from its own compacted tuples (lanes are
-        local already) in array form; the total is global, as in the
-        reference."""
-        g_total, g_rep, _l_total, l_rep = (int(x) for x in comp.metas.cpu())
-        events = self._dense_events(batch, comp.packed, l_rep)
-        return BatchMatches(
-            events=events,  # this rank's lanes
-            total=g_total,  # exact GLOBAL count (slot overflow included)
-            reported=len(events),
-            overflowed=g_total > g_rep,
-        )
+    def _follower_rows(self, batch: HostBatch, comp: BloomHits):
+        """A grid follower under host verify: its column's leader decodes
+        the column, so no events and a total of 0."""
+        self._batch_total(comp)
+        return 0, False, _NO_ROWS
+
+    _ROWS = {"dense": _dense_rows, "host": _host_rows,
+             "device": _device_rows, "grid": _grid_rows,
+             "follower": _follower_rows}
 
     def scan_and_decode(self, batch: HostBatch) -> BatchMatches:
         """``decode(batch, scan(batch))``: one batch's events."""
         return self.decode(batch, self.scan(batch))
 
-    def _candidate_rows(self, comp: BloomHits):
-        """(rows, lanes) of candidate grams from the survivor bitmap."""
-        from tpu_pattern_matching_torch.ops.bloom import unpack_hit_rows
-
-        return unpack_hit_rows(
-            comp.bits.cpu().numpy(), self.bloom_table.cfg.stride
-        )
-
     def _events_from_arrays(
-        self, batch: HostBatch, ln_a, own_a, gid_a
+        self, batch: HostBatch, ln_a, own_a, gid_a, pids=None
     ) -> list[MatchEvent]:
         """MatchEvents from verified (lane, end, gid) arrays; ``own_a`` is
-        an event's end row past its lane's halo. ``sort`` applies the
-        canonical (file_id, absolute end_offset) order (MATCHING.md
-        "--sort semantics").
+        an event's end row past its lane's halo. An event's pattern list
+        is its group's, shared by the group's events, unless ``pids``
+        gives every event's list: where a path cannot name each group
+        (the grid's merge, host verify's tuple fallback; gid -1 there).
+        ``sort`` applies the canonical (file_id, absolute end_offset)
+        order (MATCHING.md "--sort semantics").
 
         Built in bulk, with no Python frame an event: numpy gathers each
         column and ``tolist`` makes it Python ints once; one
-        ``itemgetter`` call gathers the groups' pattern lists (shared,
-        not copied) and their representatives; ``object.__new__`` mapped
-        over the count makes the events, and ``setattr`` mapped over each
-        column fills one slot of every event. Counter ``events.bulk``."""
+        ``itemgetter`` call gathers the groups' pattern lists and their
+        representatives; ``object.__new__`` mapped over the count makes
+        the events, and ``setattr`` mapped over each column fills one
+        slot of every event."""
         n = len(ln_a)
-        RECORDER.add("events.bulk", n)
         if not n:
             return []
         end_a = batch.base_off[ln_a] + own_a
@@ -576,11 +667,16 @@ class MatchSession:
             order = np.lexsort((end_a, file_a))
             ln_a, end_a, file_a, gid_a = (
                 ln_a[order], end_a[order], file_a[order], gid_a[order])
+            if pids is not None:
+                pids = list(map(pids.__getitem__, order.tolist()))
         gids = gid_a.tolist()
-        take = operator.itemgetter(*gids)
-        pids, reps = take(self._groups), take(self._reps)
-        if n == 1:  # itemgetter of one key returns the item bare
-            pids, reps = (pids,), (reps,)
+        if pids is None:
+            take = operator.itemgetter(*gids)
+            pids, reps = take(self._groups), take(self._reps)
+            if n == 1:  # itemgetter of one key returns the item bare
+                pids, reps = (pids,), (reps,)
+        else:
+            reps = list(map(operator.itemgetter(0), pids))
         events = list(map(object.__new__, repeat(MatchEvent, n)))
         for name, col in zip(_EVENT_FIELDS, (
                 file_a.tolist(), end_a.tolist(), pids, reps, ln_a.tolist(),
@@ -613,19 +709,6 @@ class MatchSession:
                        total, bl.k_ref)
         return total
 
-    def _verify(self, batch: HostBatch, comp: BloomHits, total: int):
-        with RECORDER.span("decode.rows"):
-            if total:
-                rows, lanes = self._candidate_rows(comp)
-            else:
-                rows = lanes = np.zeros(0, np.int64)
-        RECORDER.add("verify.candidates", len(rows))
-        with RECORDER.span("decode.verify", work=len(rows)):
-            arr = self._verifier.verify_batch_arrays(
-                batch.data, lanes, rows, batch.halo, batch.start_t,
-                batch.end_t)
-        return rows, lanes, arr
-
     def _device_verify(self, comp: BloomHits, total: int):
         """The device verify stage of one batch: ``(meta, (lanes, ends,
         states), gcounts)``. On a mesh every rank calls it together, with
@@ -635,136 +718,11 @@ class MatchSession:
             total = int(comp.meta[1])
         return self._dvf.verify(comp.data, comp.bounds, comp.bits, total)
 
-    def _grid_events(self, comp: BloomHits):
-        """The grid's device verify of one batch, every rank calling it
-        together with the probe's largest column total: on the column's
-        leader its merged events as ``(lanes, ends, pattern id lists,
-        global group ids)`` (``merge_shard_rows``), empty on a
-        follower."""
-        from tpu_pattern_matching_torch.parallel.pshard import (
-            merge_shard_rows,
-        )
-
-        sh, ln, e, g, _gc = self._dvf.verify_rows(
-            comp.data, comp.bounds, comp.bits, int(comp.meta[1]))
-        ln_a, e_a, bounds, pids = merge_shard_rows(sh, ln, e, g,
-                                                   self._dvf.shard_groups)
-        pid_l = pids.tolist()
-        sets = [pid_l[bounds[i]:bounds[i + 1]] for i in range(len(ln_a))]
-        gid_a = np.array([self._gid_of_pidset.get(tuple(p), -1)
-                          for p in sets], np.int64)
-        return ln_a, e_a, sets, gid_a
-
-    def _merge_pshard_events(self, batch: HostBatch, ln_a, e_a, sets,
-                             gid_a) -> list[MatchEvent]:
-        """MatchEvents of the grid's merged events (``_grid_events``):
-        event i at lane ``ln_a[i]``, row ``e_a[i]``, with the global
-        co-terminating set ``sets[i]`` and its group ``gid_a[i]``."""
-        file_ids, base_off, halo = batch.file_ids, batch.base_off, batch.halo
-        order = range(len(ln_a))
-        if self.sort and len(ln_a):  # canonical order (MATCHING.md)
-            order = np.lexsort((base_off[ln_a] + e_a - halo,
-                                file_ids[ln_a])).tolist()
-        events = []
-        for i in order:
-            ln = int(ln_a[i])
-            events.append(MatchEvent(
-                file_id=int(file_ids[ln]),
-                end_offset=int(base_off[ln]) + int(e_a[i]) - halo,
-                pattern_indices=sets[i],
-                rep_index=sets[i][0],
-                lane=ln,
-                gid=int(gid_a[i]),
-            ))
-        return events
-
-    def _decode_bloom(self, batch: HostBatch, comp: BloomHits) -> BatchMatches:
-        """Exact events of one batch: total, then (if not zero) the
-        device verify stage's events, or the bitmap and the native window
-        walker over its candidates. On the grid a follower returns none."""
-        total = self._batch_total(comp)
-        events = []
-        if self._grid is not None and self._dvf is not None:
-            from tpu_pattern_matching_torch.parallel.mesh import (
-                allreduce_host_counts,
-            )
-
-            n_ev = 0
-            if total:  # the global total: every rank verifies
-                events = self._merge_pshard_events(batch,
-                                                   *self._grid_events(comp))
-                n_ev = int(allreduce_host_counts(
-                    np.array([len(events)], np.int64), self._mesh_ctx)[0])
-            return BatchMatches(
-                events=events,  # the column's, on its leader
-                total=n_ev,  # every column's
-                reported=len(events),
-                overflowed=False,
-            )
-        if self._grid is not None and not self._grid.is_leader:
-            return BatchMatches(events=[], total=0, reported=0,
-                                overflowed=False)
-        if self._dvf is not None:
-            n_ev = 0
-            if total:  # on a mesh the global total: every rank verifies
-                with RECORDER.span("decode.verify", work=total):
-                    meta, (ln_a, e_a, st_a), _gc = self._device_verify(
-                        comp, total)
-                n_ev = int(meta[0])
-                with RECORDER.span("decode.events"):
-                    gid_a = self.table.state_gid[st_a]
-                    events = self._events_from_arrays(
-                        batch, ln_a, e_a - batch.halo, gid_a)
-                RECORDER.add("verify.events", len(events))
-            return BatchMatches(
-                events=events,  # on a mesh, this rank's lanes
-                total=n_ev,  # on a mesh, every rank's
-                reported=len(events),
-                overflowed=False,
-            )
-        rows, lanes, arr = self._verify(batch, comp, total)
-        with RECORDER.span("decode.events"):
-            events = self._host_events(batch, rows, lanes, arr)
-        RECORDER.add("verify.events", len(events))
-        return BatchMatches(
-            events=events,
-            total=len(events),
-            reported=len(events),
-            overflowed=False,
-        )
-
-    def _host_events(self, batch: HostBatch, rows, lanes, arr
-                     ) -> list[MatchEvent]:
-        """MatchEvents of host verify's walker output ``arr`` (or, without
-        the native walker, of its tuple fallback over ``rows``/``lanes``)."""
-        events = []
-        if arr is not None:
-            ln_a, e_a, st_a = arr
-            gid_a = self.table.state_gid[st_a]
-            events = self._events_from_arrays(batch, ln_a,
-                                              e_a - batch.halo, gid_a)
-        else:  # no native dense walker: tuple fallback
-            grouped: dict[tuple[int, int], set[int]] = {}
-            for ln, e, pid in self._verifier.verify_batch(
-                batch.data, lanes, rows, batch.halo,
-                batch.start_t, batch.end_t,
-            ):
-                grouped.setdefault((ln, e), set()).add(pid)
-            for ln, e in grouped.keys():
-                pids = sorted(grouped[(ln, e)])
-                events.append(
-                    MatchEvent(
-                        file_id=int(batch.file_ids[ln]),
-                        end_offset=int(batch.base_off[ln]) + e - batch.halo,
-                        pattern_indices=pids,
-                        rep_index=pids[0],
-                        lane=ln,
-                        gid=self._gid_of_pidset.get(tuple(pids), -1),
-                    )
-                )
-            if self.sort:
-                events.sort(key=lambda ev: (ev.file_id, ev.end_offset))
-        return events
+    def _gids_of(self, pid_lists) -> np.ndarray:
+        """The group of each ascending pattern list, -1 where none is."""
+        return np.array(list(map(self._gid_of_pidset.get,
+                                 map(tuple, pid_lists), repeat(-1))),
+                        np.int64)
 
     def decode_counts(
         self, batch: HostBatch, comp
@@ -772,54 +730,41 @@ class MatchSession:
         """(total_events, per-group counts [G]) without materializing
         per-event objects. Dense: the in-walk gcounts, exact past slot
         overflow. Device verify: the gcounts of the verify stage. Host
-        verify: a bincount over the walker's verified rows; like
+        verify and the grid: a bincount over the verified rows; like
         ``decode``, it grows ``k_ref`` on a refinement overflow (the
         reference grows it in ``decode`` only).
 
         On a mesh, the dense and device-verify counts come back reduced
-        over every rank (do not reduce them again); host verify counts
-        this rank's lanes (``parallel.mesh.allreduce_host_counts``), none
-        on a grid follower."""
+        over every rank (do not reduce them again), and so do the grid's;
+        host verify counts this rank's lanes
+        (``parallel.mesh.allreduce_host_counts``), none on a grid
+        follower."""
         G = self.table.num_groups
-        if isinstance(comp, CompactMatches):
+        if self._pipeline == "dense":
             return int(comp.meta[0]), per_group_counts(
                 self.dev, comp).cpu().numpy().astype(np.int64)
-        if isinstance(comp, MeshDenseMatches):
-            return int(comp.metas[0]), comp.gcounts.cpu().numpy().astype(
-                np.int64)
-        total = self._batch_total(comp)
-        if not total:
-            return 0, np.zeros(G, np.int64)
-        if self._grid is not None and self._dvf is not None:
-            # the column's merged events counted on its leader, then
-            # summed over the ranks: the global merged counts everywhere
+        if self._pipeline == "device":
+            total = self._batch_total(comp)
+            if not total:
+                return 0, np.zeros(G, np.int64)
+            meta, _packed, gc = self._device_verify(comp, total)
+            return int(meta[0]), gc.astype(np.int64)
+        total, _over, (_ln, _own, gid_a, *_pids) = self._ROWS[
+            self._pipeline](self, batch, comp)
+        counts = np.bincount(gid_a[gid_a >= 0], minlength=G).astype(np.int64)
+        if self._pipeline == "grid":  # the leaders' counts, every rank's sum
             from tpu_pattern_matching_torch.parallel.mesh import (
                 allreduce_host_counts,
             )
 
-            *_rows, gid_a = self._grid_events(comp)
-            loc = np.append(np.bincount(gid_a[gid_a >= 0], minlength=G),
-                            len(gid_a))  # [counts..., total]
-            red = allreduce_host_counts(loc, self._mesh_ctx)
-            return int(red[G]), red[:G].astype(np.int64)
-        if self._grid is not None and not self._grid.is_leader:
-            return 0, np.zeros(G, np.int64)
-        if self._dvf is not None:
-            meta, _packed, gc = self._device_verify(comp, total)
-            return int(meta[0]), gc.astype(np.int64)
-        _rows, _lanes, arr = self._verify(batch, comp, total)
-        if arr is None:
-            bm = self._decode_bloom(batch, comp)
-            return bm.total, self.event_group_counts(bm)
-        ln_a, _e_a, st_a = arr
-        gid_a = self.table.state_gid[st_a]
-        return len(ln_a), np.bincount(gid_a, minlength=G).astype(np.int64)
+            counts = allreduce_host_counts(counts, self._mesh_ctx)
+        return total, counts
 
     def group_counts(self, comp: CompactMatches) -> np.ndarray:
         """Device-side per-group counts (dense engine); bloom sessions
         count verified events instead — use decode_counts or
         event_group_counts."""
-        if self.dev is None:
+        if self._pipeline != "dense":
             raise ValueError(
                 "group_counts needs the dense engine; bloom sessions "
                 "count via decode_counts/event_group_counts"

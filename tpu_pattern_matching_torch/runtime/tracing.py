@@ -32,13 +32,13 @@ Spans and counters by layer:
 - session scan: ``scan`` > ``scan.upload`` (the copies to the device),
   ``scan.probe`` (the device engine's enqueue).
 - decode: ``decode`` > ``decode.sync`` (the wait on the device's total),
-  ``decode.rows`` (bitmap read-back and candidate rows), ``decode.verify``
-  (host or device verify), ``decode.events``; ``batch`` (a batch's scan
-  start to its decode return); counters ``verify.candidates``,
-  ``verify.events``, ``refine.overflows``, ``events.bulk`` (the events
-  built in bulk from arrays, ``MatchSession._events_from_arrays``: all of
-  ``verify.events`` on the dense, device-verify and native host-verify
-  paths, none on the tuple fallback and the grid's merge).
+  ``decode.rows`` (the read-back of the bitmap and its candidate rows, or
+  of the dense tuples), ``decode.verify`` (host or device verify),
+  ``decode.events`` (the bulk build of the verified rows' events,
+  ``MatchSession._events_from_arrays``, on every path); ``batch`` (a
+  batch's scan start to its decode return); counters
+  ``verify.candidates``, ``verify.events`` (every path's events),
+  ``refine.overflows``.
 """
 
 from __future__ import annotations

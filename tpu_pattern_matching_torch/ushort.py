@@ -33,7 +33,7 @@ from tpu_pattern_matching_torch.core.patterns import load_signature_file
 from tpu_pattern_matching_torch.runtime.buffers import UshortBuffer
 from tpu_pattern_matching_torch.runtime.files import expand_paths
 from tpu_pattern_matching_torch.runtime.stats import RunStats
-from tpu_pattern_matching_torch.utils.common import cdiv, now_us
+from tpu_pattern_matching_torch.utils.common import cdiv
 from tpu_pattern_matching_torch.runtime.session import MatchSession
 
 
@@ -101,11 +101,10 @@ def run_ushort_grep(args, device) -> int:
     files (on the grid, each column's leader), the ranks scan in lockstep
     rounds and rank 0 prints the global STATS, as in the byte CLI."""
     from tpu_pattern_matching_torch.cli import (
-        batch_total,
         mesh_spec,
-        rank_batches,
         rank_feeder,
-        reduce_stats,
+        report_stats,
+        scan_files,
     )
 
     engine = getattr(args, "engine", "auto")
@@ -150,24 +149,10 @@ def run_ushort_grep(args, device) -> int:
         automaton_states=table.num_states,
         automaton_bytes=table.nbytes,
     )
-    start = now_us()
 
-    def consume(item, comp):
-        bm = sess.decode(item.batch, comp)
-        stats.rounds += 1
+    def on_batch(item, bm):
         if item.batch.chunks:  # not a mesh rank's idle round
             stats.bytes += item.batch.payload_bytes * 2  # uint16 tokens
-        stats.matches_total += batch_total(sess, bm)
-        stats.matches_reported += sum(
-            len(e.pattern_indices) for e in bm.events
-        )
-        if bm.overflowed:
-            print(
-                f"WARNING: result slots overflowed: "
-                f"{bm.total - bm.reported} match(es) not reported this "
-                f"round (raise -R)",
-                file=sys.stderr,
-            )
         if args.verbose:
             for ev in bm.events:
                 fname = filenames[ev.file_id]
@@ -180,32 +165,5 @@ def run_ushort_grep(args, device) -> int:
                         f"[end: {off}]"
                     )
 
-    import signal
-    from collections import deque
-
-    # SIGINT: drain and flush, as the byte-mode CLI does
-    try:
-        signal.signal(signal.SIGINT, lambda *_: feeder.stop())
-    except ValueError:  # not the main thread (library embedding)
-        pass
-
-    from tpu_pattern_matching_torch.runtime.tracing import device_trace
-
-    with device_trace(getattr(args, "profile", None)):
-        feeder.start()
-        # depth-1 pipeline in follow mode: a held batch's matches would
-        # wait for the NEXT batch, which a quiet stream may never produce
-        depth = 1 if getattr(args, "follow", False) else 2
-        pending: deque = deque()
-        for item in rank_batches(sess, feeder):
-            pending.append((item, sess.scan(item.batch)))
-            if len(pending) >= depth:
-                consume(*pending.popleft())
-        while pending:
-            consume(*pending.popleft())
-    stats.wall_us = now_us() - start
-    if reduce_stats(sess, stats):
-        print(stats.render())
-        if getattr(args, "json_stats", False):
-            print(stats.to_json())
-    return 0
+    start = scan_files(args, sess, feeder, stats, on_batch)
+    return report_stats(args, sess, stats, start)
