@@ -1,6 +1,7 @@
-"""A batch's events built in bulk (``MatchSession._events_from_arrays``,
-every decode path's one builder) against a build one event at a time, on
-the CPU.
+"""A batch's events built natively and in bulk in Python
+(``MatchSession._events_from_arrays``, every decode path's one builder;
+the Python build is the fallback where the native builder's library
+cannot be built) against a build one event at a time, on the CPU.
 
 - Every decode path: the dense engine flat and on a 1-rank mesh, the
   native host verify and the device verify, on bytes and on ushorts, with
@@ -17,17 +18,29 @@ the CPU.
   ``expand``, equality, a pickle round trip, assignable fields;
   ``BatchMatches.events`` is a list.
 - Counter ``verify.events``: equal to the run's total in
-  ``--json-stats`` on the dense and the native host-verify paths.
+  ``--json-stats`` on the dense and the native host-verify paths; counter
+  ``events.native`` equal to it, and 0 where the library fails to load.
+- The native build against the Python one on every path above, bytes and
+  ushorts, ``sort`` off and on, 0, 1 and 5 events: equal field for field.
+  Its events are untracked by the cyclic collector and tracked again when
+  a field takes a tracked value; a batch's events, once dropped, leave
+  their shared lists' reference counts where they were; ``asdict``,
+  equality, pickling and ``copy`` work on them.
 
 Events are integers: every comparison is exact."""
 
+import contextlib
+import copy
 import dataclasses
+import gc
 import io
 import json
 import os
 import pickle
 import subprocess
 import sys
+import weakref
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -35,6 +48,8 @@ import pytest
 from tpu_pattern_matching.core.oracle import match_python
 from tpu_pattern_matching_torch.cli import main as port_main
 from tpu_pattern_matching_torch.core.dfa import compile_patterns
+from tpu_pattern_matching_torch.ops import kernels
+from tpu_pattern_matching_torch.runtime import session as session_mod
 from tpu_pattern_matching_torch.runtime.buffers import StreamState
 from tpu_pattern_matching_torch.runtime.session import (
     BatchMatches,
@@ -77,6 +92,33 @@ def fields(e):
     return tuple(getattr(e, f.name) for f in dataclasses.fields(e))
 
 
+@contextlib.contextmanager
+def native_unavailable():
+    """The native builder's library fails to build or load: the session
+    builds its events in Python."""
+
+    def fail(*_args, **_kw):
+        raise RuntimeError("g++ failed")
+
+    session_mod._event_builder.cache_clear()
+    try:
+        with mock.patch.object(kernels, "python_library", fail):
+            assert session_mod._event_builder() is None
+            yield
+    finally:
+        session_mod._event_builder.cache_clear()
+
+
+def assert_native_events(sess, got, python, want, shared=True):
+    """``got`` (the native build) equals the Python build and the
+    reference build field for field, its events untracked, the Python
+    build's tracked."""
+    assert_same_events(sess, got, want, shared)
+    assert_same_events(sess, python, want, shared)
+    assert not any(map(gc.is_tracked, got))
+    assert all(map(gc.is_tracked, python))
+
+
 def assert_same_events(sess, got, want, shared=True):
     assert type(got) is list
     assert [fields(e) for e in got] == [fields(e) for e in want]
@@ -88,15 +130,19 @@ def assert_same_events(sess, got, want, shared=True):
 
 
 def spy(sess):
-    """Wrap the session's bulk build: each call's events and the
-    reference build of the same arrays."""
+    """Wrap the session's build: each call's events, the reference build
+    of the same arrays, whether the events share their group's list, and
+    the Python bulk build of the same arrays."""
     calls = []
     bulk = sess._events_from_arrays
 
     def wrapped(batch, ln_a, own_a, gid_a, pids=None):
         got = bulk(batch, ln_a, own_a, gid_a, pids)
+        with native_unavailable():
+            python = bulk(batch, ln_a, own_a, gid_a, pids)
         calls.append((got, reference_build(sess, batch, ln_a, own_a,
-                                           gid_a, pids), pids is None))
+                                           gid_a, pids), pids is None,
+                      python))
         return got
 
     sess._events_from_arrays = wrapped
@@ -171,7 +217,7 @@ def test_bulk_events_equal_per_event_build(world1, path, alphabet, sort):
     bm = sess.decode(batch, sess.scan(batch))
     assert isinstance(bm, BatchMatches) and type(bm.events) is list
     assert len(calls) == 1
-    got, want, shared = calls[0]
+    got, want, shared, _python = calls[0]
     assert got is bm.events and shared
     assert_same_events(sess, got, want)
     assert any(len(e.pattern_indices) == 3 for e in got)
@@ -217,7 +263,7 @@ def test_session_batch_of_few_events(engine, data, n_events):
     calls = spy(sess)
     (bm,) = sess.scan_stream(io.BytesIO(data), file_id=3)
     assert type(bm.events) is list and len(bm.events) == n_events
-    for got, want, shared in calls:
+    for got, want, shared, _python in calls:
         assert_same_events(sess, got, want, shared)
     if n_events:
         assert calls and calls[0][0] is bm.events
@@ -252,8 +298,9 @@ def run_json_stats(argv, capsys):
     return json.loads(capsys.readouterr().out.splitlines()[-1])
 
 
-@pytest.mark.parametrize("engine", ["dense", "bloom"])
-def test_events_bulk_counter_equals_verify_events(tmp_path, capsys, engine):
+def needle_argv(tmp_path, engine):
+    """The byte CLI's arguments for three files planted with ``needle``
+    (and so ``edle``) every 97-99 bytes."""
     rng = np.random.RandomState(8)
     names = []
     for i in range(3):
@@ -264,9 +311,13 @@ def test_events_bulk_counter_equals_verify_events(tmp_path, capsys, engine):
         p.write_bytes(bytes(d))
         names.append(str(p))
     (tmp_path / "p.txt").write_text("needle\nedle\n")
-    stats = run_json_stats(["-f", ",".join(names), "-p",
-                            str(tmp_path / "p.txt"), "-B", "256", "-G", "8",
-                            "-w", "2", "--engine", engine], capsys)
+    return ["-f", ",".join(names), "-p", str(tmp_path / "p.txt"), "-B",
+            "256", "-G", "8", "-w", "2", "--engine", engine]
+
+
+@pytest.mark.parametrize("engine", ["dense", "bloom"])
+def test_events_bulk_counter_equals_verify_events(tmp_path, capsys, engine):
+    stats = run_json_stats(needle_argv(tmp_path, engine), capsys)
     assert stats["counters"]["verify.events"] == stats["matches_total"] \
         > 100
 
@@ -286,7 +337,7 @@ def test_tuple_fallback_builds_no_bulk_events():
     assert got == sorted(match_python(pats, data))
     assert c1["verify.events"] - c0.get("verify.events", 0) == 80
     assert sum(len(c[0]) for c in calls) == 80
-    for built, want, shared in calls:
+    for built, want, shared, _python in calls:
         assert not shared
         assert_same_events(sess, built, want, shared=False)
     assert {tuple(e.pattern_indices) for c in calls for e in c[0]} == {
@@ -325,9 +376,9 @@ def grid_rank(rank: str, url: str, out_dir: str) -> None:
         batch = (fill(sess, files) if rank == 0
                  else sess.new_buffer().to_batch())
         bm = sess.decode(batch, sess.scan(batch))
-        (built, want, shared), = calls
+        (built, want, shared, python), = calls
         assert built is bm.events and not shared
-        assert_same_events(sess, built, want, shared=False)
+        assert_native_events(sess, built, python, want, shared=False)
         sh, ln, e, g, _gc = rows[0]
         out[f"rows_{sort}"] = np.stack([sh, ln, e, g])
         out[f"events_{sort}"] = np.array(
@@ -405,3 +456,132 @@ def test_grid_events_equal_per_event_merge(tmp_path):
         assert lead[f"totals_{sort}"].tolist() == [n, n]
         assert follow[f"events_{sort}"].shape == (0, 5)
         assert follow[f"totals_{sort}"].tolist() == [n, 0]
+
+
+@pytest.mark.parametrize("native", [True, False],
+                         ids=["native", "unavailable"])
+@pytest.mark.parametrize("engine", ["dense", "bloom"])
+def test_events_native_counter(tmp_path, capsys, engine, native):
+    argv = needle_argv(tmp_path, engine)
+    with contextlib.nullcontext() if native else native_unavailable():
+        stats = run_json_stats(argv, capsys)
+    counters = stats["counters"]
+    assert counters["verify.events"] == stats["matches_total"] > 100
+    assert counters.get("events.native", 0) == (
+        counters["verify.events"] if native else 0)
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+@pytest.mark.parametrize("alphabet", [256, 2048], ids=["bytes", "ushorts"])
+@pytest.mark.parametrize("path", [*PATHS, "tuple-fallback"])
+def test_native_events_equal_python_build(world1, path, alphabet, sort):
+    pats, files, _syms = corpus(alphabet)
+    table = compile_patterns(pats, alphabet_size=alphabet)
+    sess = MatchSession(table, max_chunks=128, chunk_len=64, device="cpu",
+                        sort=sort, **PATHS.get(path, PATHS["host-verify"]))
+    if path == "tuple-fallback":
+        sess._verifier._dense = None  # no native walker
+    calls = spy(sess)
+    batch = fill(sess, files)
+    c0 = RECORDER.counters()
+    bm = sess.decode(batch, sess.scan(batch))
+    c1 = RECORDER.counters()
+    (got, want, shared, python), = calls
+    assert got is bm.events and shared == (path != "tuple-fallback")
+    assert_native_events(sess, got, python, want, shared)
+    assert any(len(e.pattern_indices) == 3 for e in got)
+    made = {k: c1[k] - c0.get(k, 0)
+            for k in ("events.native", "verify.events")}
+    assert made["events.native"] == made["verify.events"] == len(got) > 20
+
+
+def few_events(n, lists, sort=False, seed=0):
+    """A dense session over ``abc``, ``bc``, ``c``, ``zz`` (a group of
+    three patterns) and the columns of ``n`` events in its batch, the last
+    of the three-pattern group; ``pids`` a fresh list an event, or None."""
+    table = compile_patterns([b"abc", b"bc", b"c", b"zz"])
+    sess = MatchSession(table, max_chunks=8, chunk_len=32, device="cpu",
+                        engine="dense", sort=sort)
+    batch = fill(sess, [(4, b"q" * 70), (1, b"r" * 40)])
+    rng = np.random.RandomState(seed + n)
+    ln_a = rng.randint(0, batch.chunks, size=n).astype(np.int32)
+    own_a = rng.randint(0, 32, size=n).astype(np.int32)
+    gid_a = rng.randint(0, table.num_groups, size=n).astype(np.int32)
+    if n:
+        gid_a[-1] = [len(g) for g in sess._groups].index(3)
+    pids = [list(sess._groups[g]) for g in gid_a] if lists else None
+    return sess, batch, (ln_a, own_a, gid_a, pids)
+
+
+@pytest.mark.parametrize("lists", [False, True], ids=["groups", "lists"])
+@pytest.mark.parametrize("n", [0, 1, 5], ids=["none", "one", "five"])
+@pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
+def test_native_events_of_few_events(n, sort, lists):
+    sess, batch, cols = few_events(n, lists, sort)
+    got = sess._events_from_arrays(batch, *cols)
+    with native_unavailable():
+        python = sess._events_from_arrays(batch, *cols)
+    assert_native_events(sess, got, python,
+                         reference_build(sess, batch, *cols),
+                         shared=not lists)
+    assert len(got) == n
+    assert any(len(e.pattern_indices) == 3 for e in got) == bool(n)
+
+
+class Sentinel:
+    pass
+
+
+@pytest.mark.parametrize("field", session_mod._EVENT_FIELDS)
+def test_native_event_tracked_again(field):
+    sess, batch, cols = few_events(5, lists=False)
+    got = sess._events_from_arrays(batch, *cols)
+    e = got[2]
+    assert not gc.is_tracked(e)
+    setattr(e, field, 7)  # an int: the collector still has nothing to see
+    assert getattr(e, field) == 7 and not gc.is_tracked(e)
+    sentinel = Sentinel()
+    alive = weakref.ref(sentinel)
+    setattr(e, field, [e, sentinel])  # a cycle through the event
+    assert gc.is_tracked(e) and getattr(e, field)[0] is e
+    assert not any(map(gc.is_tracked, got[:2] + got[3:]))
+    del e, got, sentinel
+    gc.collect()
+    assert alive() is None  # the collector freed the cycle
+
+
+@pytest.mark.parametrize("lists", [False, True], ids=["groups", "lists"])
+def test_native_events_release_their_lists(lists):
+    sess, batch, cols = few_events(40, lists)
+    held = cols[3] if lists else sess._groups
+    before = list(map(sys.getrefcount, held))
+    got = sess._events_from_arrays(batch, *cols)
+    during = list(map(sys.getrefcount, held))
+    uses = [sum(e.pattern_indices is lst for e in got) for lst in held]
+    assert [d - b for b, d in zip(before, during)] == uses
+    assert sum(uses) == 40
+    del got
+    assert list(map(sys.getrefcount, held)) == before
+
+
+@pytest.mark.parametrize("how", ["asdict", "equality", "pickle", "copy",
+                                 "deepcopy", "replace"])
+def test_native_event_interface(how):
+    sess, batch, cols = few_events(5, lists=False)
+    e = sess._events_from_arrays(batch, *cols)[4]
+    assert not gc.is_tracked(e)
+    want = MatchEvent(*fields(e))
+    assert gc.is_tracked(want)
+    if how == "asdict":
+        assert dataclasses.asdict(e) == dataclasses.asdict(want) == dict(
+            zip(session_mod._EVENT_FIELDS, fields(e)))
+    elif how == "equality":
+        assert e == want and not e != want
+        assert e != MatchEvent(*fields(e)[:5], e.gid + 1)
+    else:
+        back = {"pickle": lambda x: pickle.loads(pickle.dumps(x)),
+                "copy": copy.copy, "deepcopy": copy.deepcopy,
+                "replace": dataclasses.replace}[how](e)
+        assert type(back) is MatchEvent and back is not e
+        assert back == e == want and fields(back) == fields(e)
+    assert fields(e) == fields(want)

@@ -30,7 +30,8 @@ Each library is compiled with its own ``nvcc`` at first use into
 same tile and thread code on the CPU (built with ``g++``) so the tests can
 check the kernels' arithmetic without a GPU. The same loader builds the
 host's native oracle and stager (``oracle.cpp``, ``stager.cpp``) with
-``g++``.
+``g++``, and the event builder (``events.cpp``), which makes Python objects,
+against this interpreter's headers.
 
 The ``launch_*`` functions take CUDA tensors only and raise on anything
 else — there is no fallback: a CPU tensor never gets here (the ops modules
@@ -44,6 +45,8 @@ import functools
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 
@@ -65,6 +68,7 @@ GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 # host, as the reference builds them
 GXX_NATIVE_FLAGS = ("-std=c++17", "-O3", "-march=native", "-funroll-loops",
                     "-shared", "-fPIC")
+EVENTS_LIBRARY = f"libevents.{sys.implementation.cache_tag}.so"
 # library file -> (sources, headers it includes)
 LIBRARIES = {
     "libtpm_probe_cuda.so": (("bloom_probe.cu",), ("bloom_probe.cuh",)),
@@ -77,6 +81,8 @@ LIBRARIES = {
                              ("proto_probe.cuh", "bloom_probe.cuh")),
     "liboracle.so": (("oracle.cpp",), ()),
     "libstager.so": (("stager.cpp",), ()),
+    # tied to the interpreter's object layout: one build a Python version
+    EVENTS_LIBRARY: (("events.cpp",), ()),
 }
 
 # Kernel launches per kernel and symbol width (``_u16``: uint16 symbols;
@@ -143,9 +149,9 @@ def _compile(jobs) -> None:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
 
 
-def _load(*specs) -> list:
-    """Load ``(library file, compiler, bind)`` specs, compiling the stale
-    ones first (all at once)."""
+def _load(*specs, dll=ctypes.CDLL) -> list:
+    """Load ``(library file, compiler, bind)`` specs with ``dll``,
+    compiling the stale ones first (all at once)."""
     with _LOCK:
         todo = [sp for sp in specs if sp[0] not in _LIBS]
         stale = [(compiler(), name, LIBRARIES[name][0])
@@ -155,7 +161,7 @@ def _load(*specs) -> list:
         if stale:
             _compile(stale)
         for name, _compiler, bind in todo:
-            lib = ctypes.CDLL(os.path.join(BUILD_DIR, name))
+            lib = dll(os.path.join(BUILD_DIR, name))
             bind(lib)
             _LIBS[name] = lib
         return [_LIBS[name] for name, *_ in specs]
@@ -264,6 +270,16 @@ def native_library(name: str, bind) -> ctypes.CDLL:
     """A host library of ``LIBRARIES`` (the native oracle or stager),
     built with ``g++`` on first use and bound by ``bind``."""
     return _load((name, lambda: ["g++", *GXX_NATIVE_FLAGS], bind))[0]
+
+
+def python_library(name: str, bind) -> ctypes.PyDLL:
+    """A host library of ``LIBRARIES`` that makes Python objects (the
+    event builder): built like ``native_library`` against this
+    interpreter's headers, and loaded with ``ctypes.PyDLL``, so its calls
+    hold the interpreter lock and raise the exception they set."""
+    include = sysconfig.get_paths()["include"]
+    return _load((name, lambda: ["g++", *GXX_NATIVE_FLAGS, "-I", include],
+                  bind), dll=ctypes.PyDLL)[0]
 
 
 def walk_host_library() -> ctypes.CDLL:

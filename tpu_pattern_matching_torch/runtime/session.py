@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import io
 import operator
 import time
@@ -84,9 +85,12 @@ class MatchEvent:
     """One decoded match: absolute END offset of the occurrence in its file,
     the full pattern-index set ending there, and the representative id.
     ``lane`` is the batch lane it was found in; ``gid`` the match-group id
-    (-1 when unknown). Slotted, so that a batch's events are made in bulk
-    by C-level calls (``MatchSession._events_from_arrays``); events of one
-    group share its pattern list."""
+    (-1 when unknown). Slotted: a batch's events are made natively, an
+    object and six slot stores each (``MatchSession._events_from_arrays``,
+    ``runtime/events_native.py``); events of one group share its pattern
+    list. The cyclic collector does not track them (they hold ints and a
+    list of ints, so no cycle passes through them); one is tracked again
+    when a field is given a value the collector tracks."""
 
     file_id: int
     end_offset: int
@@ -95,6 +99,11 @@ class MatchEvent:
     lane: int = -1
     gid: int = -1
 
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        if not gc.is_tracked(self) and gc.is_tracked(value):
+            _event_builder().track(self)
+
     def expand(self) -> Iterator[tuple[int, int]]:
         for p in self.pattern_indices:
             yield (self.end_offset, p)
@@ -102,6 +111,24 @@ class MatchEvent:
 
 _EVENT_FIELDS = tuple(f.name for f in dataclasses.fields(MatchEvent))
 _NO_ROWS = (np.zeros(0, np.int64),) * 3  # a batch without verified rows
+
+
+@functools.cache
+def _event_builder():
+    """The native builder of ``MatchEvent``s, or None where its library
+    cannot be built: the events are then built in Python."""
+    from tpu_pattern_matching_torch.runtime.events_native import (
+        EventBuilder,
+        EventsUnavailable,
+    )
+
+    try:
+        return EventBuilder(MatchEvent, _EVENT_FIELDS)
+    except EventsUnavailable as e:
+        from tpu_pattern_matching_torch.utils.debug import dprint
+
+        dprint(1, "%s; building events in Python", e)
+        return None
 
 
 @dataclasses.dataclass
@@ -652,12 +679,15 @@ class MatchSession:
         ``sort`` applies the canonical (file_id, absolute end_offset)
         order (MATCHING.md "--sort semantics").
 
-        Built in bulk, with no Python frame an event: numpy gathers each
-        column and ``tolist`` makes it Python ints once; one
+        numpy gathers each column; the native builder (``_event_builder``)
+        makes the events from them in one call, untracked by the cyclic
+        collector (counter ``events.native``). Where its library cannot be
+        built, they are built in bulk in Python, with no Python frame an
+        event: ``tolist`` makes each column Python ints once; one
         ``itemgetter`` call gathers the groups' pattern lists and their
         representatives; ``object.__new__`` mapped over the count makes
-        the events, and ``setattr`` mapped over each column fills one
-        slot of every event."""
+        the events, and ``object.__setattr__`` mapped over each column
+        fills one slot of every event."""
         n = len(ln_a)
         if not n:
             return []
@@ -669,6 +699,12 @@ class MatchSession:
                 ln_a[order], end_a[order], file_a[order], gid_a[order])
             if pids is not None:
                 pids = list(map(pids.__getitem__, order.tolist()))
+        build = _event_builder()
+        if build is not None:
+            events = build(file_a, end_a, ln_a, gid_a, self._groups,
+                           self._reps, pids)
+            RECORDER.add("events.native", n)
+            return events
         gids = gid_a.tolist()
         if pids is None:
             take = operator.itemgetter(*gids)
@@ -681,7 +717,8 @@ class MatchSession:
         for name, col in zip(_EVENT_FIELDS, (
                 file_a.tolist(), end_a.tolist(), pids, reps, ln_a.tolist(),
                 gids)):
-            deque(map(setattr, events, repeat(name), col), maxlen=0)
+            deque(map(object.__setattr__, events, repeat(name), col),
+                  maxlen=0)
         return events
 
     def _batch_total(self, comp: BloomHits) -> int:

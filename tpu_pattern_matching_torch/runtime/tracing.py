@@ -34,11 +34,14 @@ Spans and counters by layer:
 - decode: ``decode`` > ``decode.sync`` (the wait on the device's total),
   ``decode.rows`` (the read-back of the bitmap and its candidate rows, or
   of the dense tuples), ``decode.verify`` (host or device verify),
-  ``decode.events`` (the bulk build of the verified rows' events,
+  ``decode.events`` (the build of the verified rows' events,
   ``MatchSession._events_from_arrays``, on every path); ``batch`` (a
   batch's scan start to its decode return); counters
   ``verify.candidates``, ``verify.events`` (every path's events),
-  ``refine.overflows``.
+  ``events.native`` (those the native builder made: built in C and
+  untracked by the cyclic collector until a field takes a tracked value;
+  equal to ``verify.events`` wherever its library loads, 0 where the
+  events are built in Python), ``refine.overflows``.
 """
 
 from __future__ import annotations
